@@ -1,0 +1,122 @@
+"""Package-level properties of foundationpose_torch: it never imports
+JAX, CPU tensors take the plain paths without launching a kernel, and
+asking for CUDA without a card raises."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tiny_register_script() -> str:
+    return textwrap.dedent(
+        """
+        import sys
+        import numpy as np
+        import torch
+        from foundationpose_tpu.meshio import make_box
+        from foundationpose_torch.models import (
+            RefineNetCfg, ScoreNetCfg, init_refine_net, init_score_net)
+        from foundationpose_torch.ops import raster_cuda, attention_cuda, render_mesh
+        from foundationpose_torch.pipeline import (
+            EstimatorCfg, FoundationPose, RefinerCfg, ScorerCfg)
+
+        box = make_box(np.array([0.12, 0.16, 0.2]))
+        box.vertex_colors = np.full((8, 3), 200, np.uint8)
+        cfg = EstimatorCfg(
+            refiner=RefinerCfg(net=RefineNetCfg(base_width=4), input_res=32),
+            scorer=ScorerCfg(net=ScoreNetCfg(base_width=4), input_res=32, mode="network"),
+            min_n_views=4, inplane_step_deg=120.0)
+        K = np.array([[140.0, 0, 80.0], [0, 140.0, 60.0], [0, 0, 1.0]], np.float32)
+        gt = np.eye(4, dtype=np.float32)
+        gt[:3, 3] = [0.01, -0.02, 0.85]
+        fr = render_mesh(
+            torch.as_tensor(box.vertices, dtype=torch.float32), torch.as_tensor(box.faces),
+            torch.as_tensor(gt[None]), torch.as_tensor(K), out_hw=(120, 160),
+            vertex_color=torch.full((8, 3), 0.8),
+            vnormals=torch.as_tensor(box.vertex_normals, dtype=torch.float32))
+        rn = init_refine_net(cfg.refiner.net, torch.Generator().manual_seed(0))
+        for head in (rn.trans_head, rn.rot_head):
+            torch.nn.init.zeros_(head[1].weight)
+            torch.nn.init.zeros_(head[1].bias)
+        est = FoundationPose(
+            mesh=box, cfg=cfg, refiner_params=rn,
+            scorer_params=init_score_net(cfg.scorer.net, torch.Generator().manual_seed(1)),
+            device="cpu")
+        pose = est.register(K, (fr.color[0].numpy() * 255).astype(np.uint8),
+                            fr.depth[0].numpy(), fr.mask[0].numpy().astype(np.uint8),
+                            iteration=1)
+        assert np.isfinite(pose).all() and abs(pose[2, 3] - 0.85) < 0.2, pose
+        assert raster_cuda.KERNEL.launches == 0 and attention_cuda.KERNEL.launches == 0
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        print("OK")
+        """
+    )
+
+
+def test_cpu_register_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _tiny_register_script()],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_package_sources_import_no_jax():
+    root = os.path.join(REPO, "foundationpose_torch")
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    src = fh.read()
+                assert "import jax" not in src and "from jax" not in src, f
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from foundationpose_torch.torch_config import default_device
+    from foundationpose_tpu.meshio import make_box
+    from foundationpose_torch.pipeline import FoundationPose
+
+    assert default_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        default_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        FoundationPose(mesh=make_box(np.array([0.1, 0.1, 0.1])))
+
+
+def test_tf32_is_off():
+    import foundationpose_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_kernel_sources_and_build_key():
+    """Both kernels are CUDA sources in the package, keyed by content."""
+    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
+
+    for k in (raster_cuda.KERNEL, attention_cuda.KERNEL):
+        assert os.path.exists(os.path.join(CSRC_DIR, k.source))
+        assert "arch=compute_90a,code=sm_90a" in k.flags
+        path = k.path()
+        assert path.startswith(BUILD_DIR) and path.endswith(".so")
+    assert "--fmad=false" in raster_cuda.KERNEL.flags
+    assert raster_cuda.KERNEL.path() != attention_cuda.KERNEL.path()
+
+
+def test_unsupported_device_raises():
+    from foundationpose_torch.ops.attention import attention_core
+
+    with pytest.raises(RuntimeError, match="no kernel"):
+        attention_core(torch.zeros(1, 2, 12, device="meta"), 2)
