@@ -7,7 +7,8 @@ under its own time limit (a phase that fails or runs out ends the run
 with a nonzero exit and no result line):
 
 1. environment: versions, nvcc, the card's name and power limit;
-2. build both kernels from foundationpose_torch/csrc/ (nvcc, first use);
+2. build the kernels from foundationpose_torch/csrc/ (one nvcc per
+   source, all at once; K3 and K4 share segment_add.cu);
 3. K1, the tile rasterizer, against the plain brute path at the main
    path's crop shape (16 poses, 160x160, ~5k-face mesh, vertex colors,
    light, culling off and on) and the probes: one pose, object behind
@@ -15,14 +16,28 @@ with a nonzero exit and no result line):
    pixels, < 4% of covered pixels off by more than 1e-3;
 4. K2, the attention core, against its plain version in bf16 (< 2e-3)
    and f32 (< 1e-4);
-5. the main path: a small f32 register + track on the card against the
-   same run on the CPU plain path, then the full-width estimator
-   (base_width 64, 160x160 crops, bf16, random weights from a seed,
-   zeroed delta heads): register(iteration=5) over the 252-hypothesis
-   grid and 3 x track_one(iteration=2), with the kernels' launch counts
-   read around that run;
-6. times: each kernel against its plain version at the main path's
-   shapes, register wall time, per-frame track time, stage times.
+5. K3 and K4, the hash-grid backward's segment-adds, against their plain
+   versions at the shapes of NerfCfg's defaults (per-row bound 1e-5 of
+   the row's sum of |update|: atomics add in another order each run),
+   and their times;
+6. small slices on the card against the CPU plain path: an f32 register
+   + track, and 3 f32 NeRF train steps per grid layout from the same
+   parameters and pinned draws;
+7. the model-based main path: the full-width estimator (base_width 64,
+   160x160 crops, bf16, random weights from a seed, zeroed delta heads):
+   register(iteration=5) over the 252-hypothesis grid and
+   3 x track_one(iteration=2), with the kernels' launch counts read
+   around that run; then times: each kernel against its plain version at
+   the main path's shapes, register wall time, per-frame track time,
+   stage times;
+8. the model-free path: run_neural_object_field (NerfCfg defaults,
+   n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
+   mesh held against the bench mesh (extents within 25%, median vertex
+   distance < 5 mm, 1024^2 texture), register on the reconstruction,
+   then 20 "cuda"-layout steps; launch counts read around that run; then
+   its times (train step, extraction, bake, register, peak memory) and a
+   traced pass of 10 train steps per layout (device busy time and idle
+   share, the operators that own the device time).
 
 Prints a {"kernels": [...]} JSON line, then as its last line
 {"ok": true, "device": {...}}.
@@ -30,6 +45,7 @@ Prints a {"kernels": [...]} JSON line, then as its last line
 from __future__ import annotations
 
 import json
+import logging
 import shutil
 import signal
 import subprocess
@@ -102,12 +118,20 @@ def env_phase():
 
 
 def build_phase():
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    """One nvcc per source, all started together (K3 and K4 share one)."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    for k in (raster_cuda.KERNEL, attention_cuda.KERNEL):
+    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+
+    def build(k):
         t0 = time.perf_counter()
-        path = k.build()
-        print(f"built {k.source} -> {path} in {time.perf_counter() - t0:.2f} s")
+        return k.build(), time.perf_counter() - t0
+
+    libs = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        results = list(pool.map(build, libs))
+    for k, (path, sec) in zip(libs, results):
+        print(f"built {k.source} -> {path} in {sec:.2f} s")
         for line in k.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", line.strip())
@@ -117,7 +141,7 @@ def _bench_mesh():
     """bench.py:361-363: icosphere(4) (5120 faces, r = 0.1 m) with a
     sinusoidal radial bump; vertex colors from a seed."""
     from foundationpose_torch.geometry.icosphere import icosphere
-    from foundationpose_tpu.meshio import TriMesh
+    from foundationpose_torch.meshio import TriMesh
 
     verts, faces = icosphere(4, radius=0.1)
     verts = verts * (1.0 + 0.15 * np.sin(8 * verts[:, 2:3]))
@@ -168,7 +192,7 @@ def k1_phase():
     from foundationpose_torch.geometry.icosphere import sample_views_icosphere
     from foundationpose_torch.geometry.projection import compute_crop_window_tf
     from foundationpose_torch.ops.rasterizer import render_mesh, render_mesh_brute
-    from foundationpose_tpu.meshio import compute_mesh_diameter
+    from foundationpose_torch.meshio import compute_mesh_diameter
 
     dev = torch.device("cuda")
     mesh = _bench_mesh()
@@ -285,7 +309,7 @@ def small_slice_phase():
     path: same winner, poses within 1e-4."""
     from foundationpose_torch.models import RefineNetCfg, ScoreNetCfg
     from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
-    from foundationpose_tpu.meshio import make_box
+    from foundationpose_torch.meshio import make_box
 
     box = make_box(np.array([0.12, 0.16, 0.2]))
     box.vertex_colors = np.random.default_rng(0).integers(40, 255, (8, 3)).astype(np.uint8)
@@ -418,6 +442,363 @@ def timing_phase(est, frame, n_hyp):
     return t
 
 
+# ------------------------------------------------- model-free path (K3, K4)
+
+
+def _row_check(name, out, want, abs_sum):
+    """Atomic sums run in another order each launch: per-row bound
+    |kernel - plain| <= 1e-5 * sum|update| + 1e-30. Returns max |d|."""
+    import torch
+
+    err = (out - want).abs()
+    bad = int((err > 1e-5 * abs_sum + 1e-30).sum())
+    e = float(err.max())
+    finite = bool(torch.isfinite(out).all())
+    print(f"  {name}: max |d| {e:.3e}, entries over the bound {bad}, finite {finite}")
+    if bad or not finite:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return e
+
+
+def k3_k4_phase():
+    """K3 and K4 against their plain versions at the shapes of NerfCfg's
+    defaults (2048 rays x 256 samples x 16 levels, 2^22 hashmap): heavy
+    duplicates, K3 with 1% sentinel indices, K4 with 1% zero-cotangent
+    entries at their level's first row. Returns errors and times."""
+    import torch
+
+    from foundationpose_torch.ops.hashgrid import HashGridCfg
+    from foundationpose_torch.ops.segment_add import (
+        factored_segment_add_plain, segment_add_planes_plain)
+    from foundationpose_torch.ops.segment_add_cuda import (
+        factored_segment_add_cuda, segment_add_planes_cuda)
+
+    dev = torch.device("cuda")
+    _, sizes, offsets, T = HashGridCfg().level_tables()
+    L, N = 16, 2048 * 256
+    M = N * L * 8
+    g = torch.Generator(device=dev).manual_seed(5)
+    res = {}
+
+    idx = torch.randint(0, T, (M,), generator=g, device=dev, dtype=torch.int32)
+    idx[: M // 8] = torch.randint(0, 4096, (M // 8,), generator=g, device=dev, dtype=torch.int32)
+    idx[torch.rand(M, generator=g, device=dev) < 0.01] = T  # the drop sentinel
+    upd = torch.randn((2, M), generator=g, device=dev)
+    out = segment_add_planes_cuda(idx, upd, T)
+    want = segment_add_planes_plain(idx, upd, T)
+    res["k3_err"] = _row_check(f"K3 M={M} C=2 T={T}", out, want, segment_add_planes_plain(idx, upd.abs(), T))
+    del out, want
+    res["k3_ms"] = _event_ms(lambda: segment_add_planes_cuda(idx, upd, T), reps=5)
+    res["k3_plain_ms"] = _event_ms(lambda: segment_add_planes_plain(idx, upd, T), reps=3)
+    del idx, upd
+
+    sz = torch.as_tensor(sizes, device=dev)
+    off = torch.as_tensor(offsets, device=dev)
+    idx = off[:, None] + (torch.rand((L, N), generator=g, device=dev) * sz[:, None]).long()
+    idx[:, : N // 8] = off[:, None] + torch.randint(0, 64, (L, N // 8), generator=g, device=dev)
+    w = torch.rand((8, L, N), generator=g, device=dev)
+    gp = torch.randn((2, L, N), generator=g, device=dev)
+    zero = torch.rand((L, N), generator=g, device=dev) < 0.01  # out-of-bounds points
+    idx = torch.where(zero, off[:, None], idx).to(torch.int32)
+    gp = torch.where(zero, 0.0, gp)
+    out = factored_segment_add_cuda(idx, w, gp, T)
+    want = factored_segment_add_plain(idx, w, gp, T)
+    res["k4_err"] = _row_check(f"K4 (L, N)=({L}, {N}) nw=8 C=2 T={T}", out, want,
+                               factored_segment_add_plain(idx, w, gp.abs(), T))
+    del out, want
+    res["k4_ms"] = _event_ms(lambda: factored_segment_add_cuda(idx, w, gp, T), reps=5)
+    res["k4_plain_ms"] = _event_ms(lambda: factored_segment_add_plain(idx, w, gp, T), reps=3)
+    for k in ("k3_ms", "k3_plain_ms", "k4_ms", "k4_plain_ms"):
+        print(f"  {k} = {res[k]:.3f}   [{_CARD}]")
+    return res
+
+
+def _reference_views(mesh, hw, K, device):
+    """RGB-D views of `mesh` rendered by the port from the 12 icosahedron
+    vertices of the icosphere view sampler (its first 12 views) at 0.6 m;
+    numpy (rgbs u8, depths, masks, cam_in_obs)."""
+    import torch
+
+    from foundationpose_torch.geometry.icosphere import sample_views_icosphere
+    from foundationpose_torch.ops.rasterizer import render_mesh
+
+    cam_in_obs = sample_views_icosphere(n_views=12)[:12]
+    cam_in_obs[:, :3, 3] *= 0.6
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    colors = mesh.vertex_colors / 255.0 if mesh.vertex_colors is not None else np.full((len(mesh.vertices), 3), 0.7)
+    out = render_mesh(T(mesh.vertices), torch.as_tensor(mesh.faces, device=device),
+                      T(np.linalg.inv(cam_in_obs)), T(K), out_hw=hw, vertex_color=T(colors),
+                      vnormals=T(mesh.vertex_normals), use_light=True)
+    rgbs = (out.color.cpu().numpy() * 255).astype(np.uint8)
+    return (rgbs, out.depth.cpu().numpy().astype(np.float32), out.mask.cpu().numpy().astype(np.uint8),
+            cam_in_obs)
+
+
+def _nerf_runner(cfg, K, views, device):
+    """run_neural_object_field's set-up: scene bounds, normalization, runner."""
+    import dataclasses
+
+    from foundationpose_torch.nerf.runner import NerfRunner
+    from foundationpose_torch.nerf.scene import compute_scene_bounds, preprocess_data
+
+    rgbs, depths, masks, cam_in_obs = views
+    sc, tr, pts = compute_scene_bounds(K, rgbs, depths, masks, cam_in_obs)
+    cfg = dataclasses.replace(cfg, sc_factor=sc, translation=tuple(np.asarray(tr).tolist()))
+    rn, dn, pn = preprocess_data(rgbs, depths, masks, cam_in_obs, sc, tr)
+    return NerfRunner(cfg, rn, dn, masks, pn, K, build_pcd=pts, device=device)
+
+
+def small_nerf_phase():
+    """A tiny f32 NerfCfg, each grid layout, 3 steps on the card and on the
+    CPU plain path from the same parameters and the same pinned draws:
+    losses within 1e-4 relative, step 1's gradients within 1e-4 of their
+    largest magnitude."""
+    import torch
+
+    from foundationpose_torch.nerf import NerfCfg
+    from foundationpose_torch.meshio import make_box
+
+    box = make_box(np.array([0.2, 0.2, 0.2]))
+    box.vertex_colors = np.random.default_rng(0).integers(50, 255, (8, 3)).astype(np.uint8)
+    K = np.array([[60.0, 0, 32.0], [0, 60.0, 32.0], [0, 0, 1.0]], np.float32)
+    views = _reference_views(box, (64, 64), K, "cpu")
+    for layout in ("oct", "cuda"):
+        cfg = NerfCfg(n_step=10, n_rand=256, n_samples=16, n_samples_around_depth=16, num_levels=6,
+                      finest_res=128, log2_hashmap_size=14, amp=False, grid_layout=layout)
+        runners = {dev: _nerf_runner(cfg, K, views, dev) for dev in ("cpu", "cuda")}
+        cpu = runners["cpu"]
+        gen = torch.Generator().manual_seed(1)
+        for step in range(3):
+            idx = torch.randint(0, cpu.n_rays, (cfg.n_rand,), generator=gen)
+            draws = (idx,) + cpu.draw(cfg.n_rand, gen)
+            out = {}
+            for dev, r in runners.items():
+                loss, _, grads = r.loss_and_grads(*(d.to(r.device) for d in draws))
+                r.apply_gradients(grads)
+                out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+            rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+            gerr = max(float((out["cuda"][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                       for k, g in out["cpu"][1].items())
+            print(f"  {layout} step {step + 1}: loss cpu {out['cpu'][0]:.6f} cuda {out['cuda'][0]:.6f} "
+                  f"(rel {rel:.2e}), grads max |d| / max |g| {gerr:.2e}")
+            if not rel < 1e-4 or (step == 0 and not gerr < 1e-4):
+                raise AssertionError(f"NeRF {layout} step on the card disagrees with the CPU plain path")
+
+
+NERF_STEPS = 200
+NERF_CUDA_STEPS = 20
+
+
+class _StepLog(logging.Handler):
+    """Collects (step, loss, host time) from the lines NerfRunner.train
+    logs every tenth of a run; each such line has read the loss, so the
+    step before it has ended on the card."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.steps = []
+        self._logger = logging.getLogger("foundationpose_torch.nerf.runner")
+
+    def emit(self, record):
+        if record.msg.startswith("step "):
+            self.steps.append((record.args[0], record.args[2], time.perf_counter()))
+
+    def __enter__(self):
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._level)
+
+
+def _surface_sample(mesh, n, seed=0):
+    """n points uniform by area on the mesh's surface."""
+    rng = np.random.default_rng(seed)
+    tri = mesh.vertices[mesh.faces]
+    area = 0.5 * np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=-1)
+    f = rng.choice(len(tri), n, p=area / area.sum())
+    a, b = rng.uniform(size=(2, n, 1))
+    flip = (a + b) > 1
+    a, b = np.where(flip, 1 - a, a), np.where(flip, 1 - b, b)
+    return tri[f, 0] + a * (tri[f, 1] - tri[f, 0]) + b * (tri[f, 2] - tri[f, 0])
+
+
+def model_free_phase():
+    """The model-free path at the full width of NerfCfg's defaults:
+    run_neural_object_field on 12 reference views of the bench mesh, the
+    mesh checked against the bench mesh, register on the reconstruction,
+    then NERF_CUDA_STEPS steps with the "cuda" layout. Returns the launch
+    counts of that run and what the timing needs."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from foundationpose_torch.nerf import NerfCfg, run_neural_object_field
+    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+    from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
+
+    mesh = _bench_mesh()
+    views = _reference_views(mesh, (480, 640), K_FULL, "cuda")
+    print(f"  {len(views[0])} views {views[0].shape[1:3]}, mask px per view "
+          f"{int(views[2].sum()) // len(views[0])}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    for k in kernels:
+        k.launches = 0
+
+    log = _StepLog()
+    cfg = NerfCfg(n_step=NERF_STEPS)
+    t0 = time.perf_counter()
+    with log:
+        recon, runner = run_neural_object_field(cfg, K_FULL, *views, device="cuda")
+    t = {"reconstruction_wall_s": time.perf_counter() - t0}
+    steps = dict((it, (loss, at)) for it, loss, at in log.steps)
+    losses = [loss for loss, _ in steps.values()]
+    t["train_step_ms_mean_41_200"] = (steps[NERF_STEPS][1] - steps[40][1]) / (NERF_STEPS - 40) * 1e3
+    t["train_wall_s"] = steps[NERF_STEPS][1] - t0
+    print(f"  rays {runner.n_rays}, steps {runner.global_step}, logged at {sorted(steps)}, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, K4 launches {segment_add_cuda.K4.launches}")
+    if segment_add_cuda.K4.launches < NERF_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"K4 launched {segment_add_cuda.K4.launches} times in {NERF_STEPS} steps")
+    ext_b = mesh.vertices.max(0) - mesh.vertices.min(0)
+    ext_r = recon.bounds()[1] - recon.bounds()[0]
+    dist, _ = cKDTree(_surface_sample(mesh, 400_000)).query(recon.vertices)
+    med = float(np.median(dist))
+    t["mesh_median_dist_mm"] = med * 1e3
+    print(f"  mesh: {len(recon.faces)} faces, extents {ext_r} vs {ext_b}, "
+          f"median vertex distance {med * 1e3:.3f} mm, texture {recon.texture.shape}")
+    if not (np.abs(ext_r / ext_b - 1) <= 0.25).all() or not med < 0.005:
+        raise AssertionError("the reconstruction is off the bench mesh")
+    if recon.texture.shape != (1024, 1024, 3) or not np.isfinite(recon.vertices).all():
+        raise AssertionError("the reconstruction has no 1024^2 texture or non-finite vertices")
+
+    est = _estimator(recon, EstimatorCfg(refiner=RefinerCfg(), scorer=ScorerCfg(mode="network")), "cuda")
+    frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
+    before = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    pose = est.register(K_FULL, *frame, iteration=5)
+    reg = (raster_cuda.KERNEL.launches - before[0], attention_cuda.KERNEL.launches - before[1])
+    print(f"  register on the reconstruction: t = {pose[:3, 3]}, launches K1 {reg[0]} K2 {reg[1]}")
+    if not (pose.shape == (4, 4) and np.isfinite(pose).all() and abs(pose[2, 3] - 0.9) < 0.2):
+        raise AssertionError(f"register on the reconstruction: pose out of bounds\n{pose}")
+    if reg[0] < 6 or reg[1] < 12:
+        raise AssertionError(f"register on the reconstruction launched too few kernels: {reg}")
+
+    cuda_runner = _nerf_runner(NerfCfg(n_step=NERF_STEPS, grid_layout="cuda"), K_FULL, views, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(NERF_CUDA_STEPS):
+        loss, _ = cuda_runner.train_step(gen)
+        losses.append(float(loss))
+        stamps.append(time.perf_counter())
+    t["cuda_layout_step_ms_median"] = float(np.median(np.diff(stamps)[1:])) * 1e3
+    print(f"  cuda layout: losses {losses[0]:.4f} -> {losses[-1]:.4f}, K3 launches {segment_add_cuda.K3.launches}")
+    if segment_add_cuda.K3.launches < NERF_CUDA_STEPS or not np.isfinite(losses).all():
+        raise AssertionError("the cuda-layout steps launched too few K3 or gave non-finite losses")
+    torch.cuda.synchronize()
+    t["nerf_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    counts = {"raster": kernels[0].launches, "attention": kernels[1].launches,
+              "k3": kernels[2].launches, "k4": kernels[3].launches}
+    return counts, t, (runner, cuda_runner, views, est, frame)
+
+
+def nerf_timing_phase(t, runner, cuda_runner, views, est, frame):
+    import torch
+
+    from foundationpose_torch.nerf.texture import bake_texture
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = runner.extract_mesh(voxel_size=runner.cfg.mesh_resolution)
+    t["extract_mesh_s"] = time.perf_counter() - t0
+    rgbs, depths, _, _ = views
+    t0 = time.perf_counter()
+    bake_texture(runner.mesh_to_real_world(mesh), rgbs, depths, runner.get_optimized_poses_in_real_world(),
+                 K_FULL, tex_res=runner.cfg.tex_res, top_views=runner.cfg.tex_top_views, device="cuda")
+    t["bake_texture_s"] = time.perf_counter() - t0
+    est.register(K_FULL, *frame, iteration=5)  # warm-up
+    reg = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.register(K_FULL, *frame, iteration=5)
+        reg.append(time.perf_counter() - t0)
+    t["register_recon_ms_median3"] = float(np.median(reg)) * 1e3
+    for name, r in (("oct", runner), ("cuda", cuda_runner)):
+        t.update(_profile_steps(name, r))
+    for k, v in t.items():
+        print(f"  {k} = {v:.3f}   [{_CARD}]")
+    return t
+
+
+PROFILE_STEPS = 10
+
+
+def _device_busy_us(trace_path):
+    """Union of the device activity intervals (kernels, memsets, copies)
+    in a chrome trace written by torch.profiler, and their count."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy, len(spans)
+
+
+def _profile_steps(name, runner):
+    """Where a train step's time goes, in this run. Two traced passes of
+    PROFILE_STEPS steps, each step ended by reading its loss: a CUDA-only
+    trace (little host cost) gives the device's busy time and idle share
+    over the pass's host wall time; a CPU + CUDA trace gives the operators
+    that own the device time, printed in order."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def steps():
+        for _ in range(PROFILE_STEPS):
+            float(runner.train_step(gen)[0])
+
+    steps()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    plain_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    path = os.path.join(out_dir, f"nerf_step_{name}_cuda_only.json")
+    prof.export_chrome_trace(path)
+    busy_us, n_act = _device_busy_us(path)
+    if n_act == 0:
+        raise AssertionError("the CUDA-only trace holds no device activity")
+    busy_ms = busy_us / 1e3 / PROFILE_STEPS
+    print(f"  {name} step: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
+          f"device busy {busy_ms:.3f} ms, {n_act / PROFILE_STEPS:.0f} device activities per step")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps()
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        print(f"    {e.key[:48]:48s} {e.self_device_time_total / 1e3 / PROFILE_STEPS:8.3f} ms/step "
+              f"{e.count / PROFILE_STEPS:6.0f} calls/step")
+    return {f"{name}_step_ms_untraced_{PROFILE_STEPS}": plain_ms,
+            f"{name}_step_ms_cuda_traced": wall_ms,
+            f"{name}_step_device_busy_ms": busy_ms,
+            f"{name}_step_device_idle_share": 1.0 - busy_ms / wall_ms}
+
+
 def main():
     import torch  # noqa: F401  (fails fast without PyTorch)
 
@@ -425,21 +806,36 @@ def main():
     phase("build kernels", 400, build_phase)
     k1_err = phase("K1 tile rasterizer vs brute", 240, k1_phase)
     k2_err = phase("K2 attention vs plain", 120, k2_phase)
+    seg = phase("K3, K4 segment-adds vs plain at the NeRF shapes", 240, k3_k4_phase)
     phase("small slice: card vs CPU plain path", 180, small_slice_phase)
+    phase("small NeRF slice: card vs CPU plain path", 180, small_nerf_phase)
     counts, est, frame, n_hyp = phase("main path: register + 3 tracked frames", 300, main_path_phase)
     t = phase("timing", 300, timing_phase, est, frame, n_hyp)
+    del est
+    mf_counts, t_mf, mf = phase("model-free path: reconstruct, register, cuda layout", 420, model_free_phase)
+    t.update(phase("model-free timing and step profile", 240, nerf_timing_phase, t_mf, *mf))
 
     kernels = [
         {"name": "K1 tile rasterizer", "route": "cuda",
          "source": "foundationpose_torch/csrc/raster.cu",
          "replaces": "foundationpose_tpu/ops/pallas_raster2.py:69",
-         "launches": counts["raster"], "max_abs_err": k1_err,
+         "launches": counts["raster"] + mf_counts["raster"], "max_abs_err": k1_err,
          "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"]},
         {"name": "K2 attention core", "route": "cuda",
          "source": "foundationpose_torch/csrc/attention.cu",
          "replaces": "foundationpose_tpu/ops/attention.py:44",
-         "launches": counts["attention"], "max_abs_err": k2_err,
+         "launches": counts["attention"] + mf_counts["attention"], "max_abs_err": k2_err,
          "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"]},
+        {"name": "K3 segment-add", "route": "cuda",
+         "source": "foundationpose_torch/csrc/segment_add.cu",
+         "replaces": "foundationpose_tpu/ops/pallas_scatter.py:43",
+         "launches": mf_counts["k3"], "max_abs_err": seg["k3_err"],
+         "ms": seg["k3_ms"], "plain_ms": seg["k3_plain_ms"]},
+        {"name": "K4 factored segment-add", "route": "cuda",
+         "source": "foundationpose_torch/csrc/segment_add.cu",
+         "replaces": "foundationpose_tpu/ops/pallas_scatter.py:275",
+         "launches": mf_counts["k4"], "max_abs_err": seg["k4_err"],
+         "ms": seg["k4_ms"], "plain_ms": seg["k4_plain_ms"]},
     ]
     print(_CARD)
     print(json.dumps({"kernels": kernels}))

@@ -7,4 +7,4 @@ from .networks import (
     init_refine_net,
     init_score_net,
 )
-from .convert import params_from_jax, load_npz_params
+from .convert import params_from_jax, load_npz_params, nerf_params_from_jax

@@ -1,4 +1,5 @@
-"""JAX param trees and .npz checkpoints -> state_dicts of the port's nets.
+"""JAX param trees and .npz checkpoints -> state_dicts of the port's nets
+and of the neural object field (`nerf_params_from_jax`).
 
 The inverse of foundationpose_tpu/models/convert.py: a JAX param tree
 (nested dicts of numpy arrays, as the JAX package's init_* functions and
@@ -117,3 +118,30 @@ def load_npz_params(path: str):
             d = d.setdefault(p, {})
         d[parts[-1]] = val
     return tree, meta
+
+
+def _nerf_sd(tree) -> dict:
+    sd = {"grid": _t(tree["grid"])}
+    for head in ("sigma", "color"):
+        for i, p in enumerate(tree["mlp"][head]):
+            _linear(sd, f"mlp.{head}.{i}", p)
+    sd["features"] = _t(tree["features"])
+    sd["pose"] = _t(tree["pose"])
+    return sd
+
+
+def nerf_params_from_jax(params: dict, opt_state=None):
+    """A JAX NerfRunner's params tree (grid, mlp, features, pose) -> a
+    state_dict of the port's nerf.runner.NerfModel, MLP kernels
+    transposed into nn.Linear layout.
+
+    With `opt_state` (the optax chain's state: clip, Adam, schedule; leaves
+    as numpy arrays), also returns the Adam moments as state_dicts and
+    the update count: (state_dict, {"count", "mu", "nu"}); else
+    (state_dict, None)."""
+    sd = _nerf_sd(params)
+    if opt_state is None:
+        return sd, None
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    opt = {"count": int(np.asarray(adam.count)), "mu": _nerf_sd(adam.mu), "nu": _nerf_sd(adam.nu)}
+    return sd, opt

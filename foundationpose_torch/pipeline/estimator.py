@@ -27,6 +27,7 @@ from ..torch_config import default_device
 from ..geometry.clustering import cluster_poses
 from ..geometry.icosphere import sample_views_icosphere
 from ..geometry.projection import guess_translation
+from ..meshio import TriMesh, compute_mesh_diameter, voxel_downsample
 from ..models.convert import load_npz_params, params_from_jax
 from ..models.networks import (
     RefineNet,
@@ -37,7 +38,6 @@ from ..models.networks import (
 from .config import EstimatorCfg
 from .graph import register_body, track_body
 from .mesh_tensors import make_mesh_tensors
-from foundationpose_tpu.meshio import TriMesh, compute_mesh_diameter, voxel_downsample
 
 logger = logging.getLogger(__name__)
 
@@ -54,11 +54,11 @@ def prepare_render_mesh(mesh: TriMesh, cfg: EstimatorCfg, diameter: float) -> Tr
     cfg. `mesh` is the centered mesh."""
     render_src = mesh
     if cfg.vertex_color_render and mesh.has_texture:
-        from foundationpose_tpu.meshio import texture_to_vertex_colors
+        from ..meshio import texture_to_vertex_colors
 
         render_src = texture_to_vertex_colors(mesh)
     if cfg.max_render_faces is not None and len(mesh.faces) > cfg.max_render_faces:
-        from foundationpose_tpu.meshio import decimate_vertex_clustering
+        from ..meshio import decimate_vertex_clustering
 
         vox = diameter / 160.0  # crop-pixel scale
         render_src = decimate_vertex_clustering(mesh, vox)

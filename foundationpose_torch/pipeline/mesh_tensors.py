@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from .. import torch_config  # noqa: F401
-from foundationpose_tpu.meshio import TriMesh
+from ..meshio import TriMesh
 
 
 class MeshTensors(NamedTuple):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from foundationpose_torch.ops import attention_cuda, raster_cuda
+from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
 from foundationpose_torch.ops.attention import attention_core_plain
 from foundationpose_torch.ops.rasterizer import render_mesh, render_mesh_brute
 
@@ -69,3 +69,63 @@ def test_launch_counters_count_launches(card):
     torch.cuda.synchronize()
     assert attention_cuda.KERNEL.launches == a0 + 1
     assert raster_cuda.KERNEL.launches == r0
+
+
+def _row_bound(abs_sum):
+    """Atomic sums run in another order each launch: per-row bound."""
+    return 1e-5 * abs_sum + 1e-30
+
+
+def test_k3_matches_plain(card):
+    from foundationpose_torch.ops.segment_add import segment_add_planes_plain
+
+    g = torch.Generator(device=card).manual_seed(0)
+    M, T, C = 1 << 20, 50_000, 2
+    idx = torch.randint(0, T, (M,), generator=g, device=card, dtype=torch.int32)
+    idx[: M // 10] = 17  # heavy duplication
+    idx[M // 10 : M // 10 + M // 100] = T  # the drop sentinel
+    upd = torch.randn((C, M), generator=g, device=card)
+    before = segment_add_cuda.K3.launches
+    out = segment_add_cuda.segment_add_planes_cuda(idx, upd, T)
+    torch.cuda.synchronize()
+    assert segment_add_cuda.K3.launches == before + 1
+    want = segment_add_planes_plain(idx, upd, T)
+    bound = _row_bound(segment_add_planes_plain(idx, upd.abs(), T))
+    assert ((out - want).abs() <= bound).all()
+
+
+def test_k4_matches_plain(card):
+    from foundationpose_torch.ops.segment_add import factored_segment_add_plain
+
+    g = torch.Generator(device=card).manual_seed(1)
+    L, N, NW, C = 4, 1 << 17, 8, 2
+    sizes = torch.tensor([3000, 20_000, 50_000, 50_000], device=card)
+    offs = torch.cumsum(sizes, 0) - sizes
+    T = int(sizes.sum())
+    idx = (offs[:, None] + (torch.rand((L, N), generator=g, device=card) * sizes[:, None]).long()).int()
+    w = torch.rand((NW, L, N), generator=g, device=card)
+    gp = torch.randn((C, L, N), generator=g, device=card)
+    zero = torch.rand((L, N), generator=g, device=card) < 0.01  # oob entries: level start, zero g
+    idx = torch.where(zero, offs[:, None].int(), idx)
+    gp = torch.where(zero, 0.0, gp)
+    before = segment_add_cuda.K4.launches
+    out = segment_add_cuda.factored_segment_add_cuda(idx, w, gp, T)
+    torch.cuda.synchronize()
+    assert segment_add_cuda.K4.launches == before + 1
+    want = factored_segment_add_plain(idx, w, gp, T)
+    bound = _row_bound(factored_segment_add_plain(idx, w, gp.abs(), T))
+    assert ((out - want).abs() <= bound).all()
+
+
+def test_hashgrid_backward_launches_k3_k4(card):
+    from foundationpose_torch.ops.hashgrid import HashGridCfg, hashgrid_encode
+
+    x = torch.rand((4096, 3), generator=torch.Generator(device=card).manual_seed(2), device=card) * 2 - 1
+    for layout, counter in (("cuda", segment_add_cuda.K3), ("oct", segment_add_cuda.K4)):
+        cfg = HashGridCfg(n_levels=6, log2_hashmap_size=14, layout=layout)
+        emb = torch.zeros((cfg.level_tables()[3], 2), device=card, requires_grad=True)
+        before = counter.launches
+        hashgrid_encode(emb, x, cfg).sum().backward()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert torch.isfinite(emb.grad).all() and emb.grad.abs().sum() > 0

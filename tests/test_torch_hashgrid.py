@@ -1,0 +1,182 @@
+"""The hash-grid encoder and the segment-adds K3 / K4 of
+foundationpose_torch against foundationpose_tpu on the same numpy inputs.
+
+K3 and K4 run their plain versions here (CPU tensors); they are held
+against the Pallas kernels in interpret mode within the bounds of
+tests/test_hashgrid.py (the TPU kernels split each update into hi/lo
+bf16 halves) and against the JAX package's off-TPU fallbacks within 1e-5.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from foundationpose_tpu.ops import hashgrid as jhg
+from foundationpose_tpu.ops import pallas_scatter as jps
+from foundationpose_torch.ops import hashgrid as thg
+from foundationpose_torch.ops.segment_add import (
+    factored_segment_add,
+    factored_segment_add_plain,
+    segment_add_planes,
+    segment_add_planes_plain,
+)
+
+
+def _flat_case(kind, seed=3):
+    """(idx (M,) int32, upd (C, M) f32, table size) with duplicates and,
+    for 'sentinel', 1% of the indices at the drop sentinel T."""
+    rng = np.random.default_rng(seed)
+    M, TBL, C = 4096, 1500, 2
+    idx = rng.integers(0, TBL, M).astype(np.int32)
+    idx[:1500] = 3  # heavy duplication
+    if kind == "sentinel":
+        idx[rng.choice(M, M // 100, replace=False)] = TBL
+    return idx, rng.normal(size=(C, M)).astype(np.float32), TBL
+
+
+def _leveled_case(seed=5, oob_zero=False):
+    """Per-level indices (L, N) inside their level's segment, weights
+    (8, L, N), cotangents (C, L, N); with oob_zero 1% of the entries
+    carry zero cotangents at their level's first row, as the hash-grid
+    backward sends out-of-bounds points."""
+    rng = np.random.default_rng(seed)
+    L, N, NW, C = 3, 700, 8, 2
+    starts, sizes, TBL = np.array([0, 400, 1000]), np.array([400, 600, 800]), 1800
+    idx = np.stack([starts[lv] + rng.integers(0, sizes[lv], N) for lv in range(L)]).astype(np.int32)
+    idx[:, :40] = starts[:, None] + 7  # duplicates
+    w = rng.uniform(0, 1, size=(NW, L, N)).astype(np.float32)
+    g = rng.normal(size=(C, L, N)).astype(np.float32)
+    if oob_zero:
+        sel = rng.uniform(size=(L, N)) < 0.01
+        idx[sel] = np.broadcast_to(starts[:, None], (L, N))[sel]
+        g[:, sel] = 0.0
+    return idx, w, g, TBL
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "sentinel"])
+def test_k3_plain_vs_pallas_interpret_and_fallback(kind):
+    idx, upd, TBL = _flat_case(kind)
+    got = segment_add_planes(torch.as_tensor(idx), torch.as_tensor(upd), TBL).numpy()
+    pallas = np.asarray(
+        jps._segment_add_flat(jnp.asarray(idx), jnp.asarray(upd), TBL, block=256, interpret=True)
+    )
+    fallback = np.asarray(jps.sorted_segment_add_planes(jnp.asarray(idx), jnp.asarray(upd), TBL))
+    assert got.shape == (TBL, 2) and got.dtype == np.float32
+    np.testing.assert_allclose(got, pallas, rtol=3e-4, atol=5e-4)
+    np.testing.assert_allclose(got, fallback, rtol=1e-5, atol=1e-5)
+    want = np.zeros((TBL, 2), np.float32)
+    keep = idx < TBL
+    np.add.at(want, idx[keep], upd[:, keep].T)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k3_drops_out_of_range_indices():
+    idx = torch.tensor([0, 5, 2000, 5, -1, -7], dtype=torch.int64)
+    got = segment_add_planes_plain(idx, torch.ones(2, 6), 1000)
+    assert got[0, 0] == 1.0 and got[5, 0] == 2.0 and got.sum() == 6.0
+
+
+@pytest.mark.parametrize("oob_zero", [False, True])
+def test_k4_plain_vs_pallas_interpret_and_fallback(oob_zero):
+    idx, w, g, TBL = _leveled_case(oob_zero=oob_zero)
+    got = factored_segment_add(torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g), TBL).numpy()
+    args = (jnp.asarray(idx), jnp.asarray(w), jnp.asarray(g), TBL)
+    pallas = np.asarray(jps._segment_add_factored(*args, block=256, interpret=True))
+    fallback = np.asarray(jps.factored_segment_add(*args))
+    assert got.shape == (TBL, 16)
+    np.testing.assert_allclose(got, pallas, rtol=3e-4, atol=5e-4)
+    np.testing.assert_allclose(got, fallback, rtol=1e-5, atol=1e-5)
+
+
+def test_k4_rounds_weights_to_bf16():
+    """Row q*C + c of an update is bf16_rne(w[q]) * g[c] in f32."""
+    w = torch.full((8, 1, 1), 1.0 + 2.0**-9)  # a tie: rounds to even (1.0)
+    w[1] = 1.0 + 3 * 2.0**-9  # rounds up to 1 + 2^-7
+    g = torch.tensor([[[3.0]], [[-1.0]]])
+    got = factored_segment_add_plain(torch.zeros(1, 1, dtype=torch.int32), w, g, 2)
+    assert got[0, 0] == 3.0 and got[0, 1] == -1.0
+    assert got[0, 2] == 3.0 * (1.0 + 2.0**-7) and got[1].abs().sum() == 0
+
+
+def test_segment_add_other_device_raises():
+    with pytest.raises(RuntimeError, match="no kernel"):
+        segment_add_planes(torch.zeros(3, dtype=torch.int32, device="meta"),
+                           torch.zeros(2, 3, device="meta"), 4)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        factored_segment_add(torch.zeros(1, 3, dtype=torch.int32, device="meta"),
+                             torch.zeros(8, 1, 3, device="meta"), torch.zeros(2, 1, 3, device="meta"), 4)
+
+
+# ------------------------------------------------------------------ encoder
+
+GRID_CASES = [(4, 10), (5, 11), (6, 12)]
+
+
+def _cfgs(layout, n_levels, log2):
+    # finest scale < 64: one ulp of a cell position stays under 4e-6
+    kw = dict(n_levels=n_levels, level_dim=2, base_resolution=8, desired_resolution=64,
+              log2_hashmap_size=log2, layout=layout)
+    return jhg.HashGridCfg(**kw), thg.HashGridCfg(**kw)
+
+
+def _inputs(jcfg, seed=0, n=600):
+    rng = np.random.default_rng(seed)
+    emb = rng.uniform(-1, 1, (jcfg.level_tables()[3], 2)).astype(np.float32)  # an O(1) table
+    x = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    x[:40] = rng.uniform(-1.3, 1.3, (40, 3))  # some out of bounds
+    x[40:44] = [[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0], [1.0, -1.0, 0.0], [0.0, 0.0, 1.0]]
+    g = rng.normal(size=(n, jcfg.out_dim)).astype(np.float32)
+    return emb, x, g
+
+
+def test_level_tables_and_shifts_match():
+    for layout in thg.LAYOUTS:
+        jcfg, tcfg = _cfgs(layout, 16, 22)
+        for a, b in zip(jcfg.level_tables(), tcfg.level_tables()):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(np.array(jhg._oct_shifts(jcfg)), thg.oct_shifts(tcfg))
+    full = thg.HashGridCfg()
+    assert full.level_tables()[3] == 36_112_368 and full.out_dim == 32
+
+
+@pytest.mark.parametrize("layout", thg.LAYOUTS)
+@pytest.mark.parametrize("n_levels,log2", GRID_CASES)
+def test_encode_forward_matches_jax(layout, n_levels, log2):
+    jcfg, tcfg = _cfgs(layout, n_levels, log2)
+    res, sizes, _, _ = tcfg.level_tables()
+    assert ((res + 1) ** 3 > sizes).any(), "some levels must be hashed"
+    emb, x, _ = _inputs(jcfg)
+    want = np.asarray(jhg.hashgrid_encode(jnp.asarray(emb), jnp.asarray(x), jcfg))
+    got = thg.hashgrid_encode(torch.as_tensor(emb), torch.as_tensor(x), tcfg).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    oob = np.any(np.abs(x) > 1.0, axis=-1)
+    assert oob.sum() > 10 and (got[oob] == 0).all()
+
+
+@pytest.mark.parametrize("layout", thg.LAYOUTS)
+@pytest.mark.parametrize("n_levels,log2", GRID_CASES)
+def test_encode_vjp_matches_jax(layout, n_levels, log2):
+    jcfg, tcfg = _cfgs(layout, n_levels, log2)
+    emb, x, g = _inputs(jcfg, seed=1)
+    _, vjp = jax.vjp(lambda e, p: jhg.hashgrid_encode(e, p, jcfg), jnp.asarray(emb), jnp.asarray(x))
+    de_j, dx_j = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    e = torch.tensor(emb, requires_grad=True)
+    p = torch.tensor(x, requires_grad=True)
+    thg.hashgrid_encode(e, p, tcfg).backward(torch.as_tensor(g))
+    np.testing.assert_allclose(e.grad.numpy(), de_j, atol=1e-5 * np.abs(de_j).max(), rtol=0)
+    np.testing.assert_allclose(p.grad.numpy(), dx_j, atol=1e-5 * np.abs(dx_j).max(), rtol=0)
+    oob = np.any(np.abs(x) > 1.0, axis=-1)
+    assert (p.grad.numpy()[oob] == 0).all()
+
+
+def test_encode_rejects_unported_layout():
+    with pytest.raises(NotImplementedError, match="quad"):
+        thg.hashgrid_encode(torch.zeros(8, 2), torch.zeros(1, 3), thg.HashGridCfg(layout="quad"))
+
+
+def test_init_hashgrid_range():
+    cfg = thg.HashGridCfg(n_levels=4, log2_hashmap_size=10, base_resolution=4, desired_resolution=32)
+    t = thg.init_hashgrid(cfg, torch.Generator().manual_seed(0))
+    assert t.shape == (cfg.level_tables()[3], 2) and t.dtype == torch.float32
+    assert t.abs().max() <= 1e-4 and t.std() > 3e-5

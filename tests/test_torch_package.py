@@ -19,7 +19,7 @@ def _tiny_register_script() -> str:
         import sys
         import numpy as np
         import torch
-        from foundationpose_tpu.meshio import make_box
+        from foundationpose_torch.meshio import make_box
         from foundationpose_torch.models import (
             RefineNetCfg, ScoreNetCfg, init_refine_net, init_score_net)
         from foundationpose_torch.ops import raster_cuda, attention_cuda, render_mesh
@@ -54,6 +54,7 @@ def _tiny_register_script() -> str:
         assert np.isfinite(pose).all() and abs(pose[2, 3] - 0.85) < 0.2, pose
         assert raster_cuda.KERNEL.launches == 0 and attention_cuda.KERNEL.launches == 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert "foundationpose_tpu" not in sys.modules
         print("OK")
         """
     )
@@ -71,20 +72,24 @@ def test_cpu_register_imports_no_jax():
 
 
 def test_package_sources_import_no_jax():
+    """Neither the package nor chip_smoke.py imports JAX or the JAX
+    package."""
     root = os.path.join(REPO, "foundationpose_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _dirs, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    src = fh.read()
-                assert "import jax" not in src and "from jax" not in src, f
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            src = fh.read()
+        for banned in ("import jax", "from jax", "import foundationpose_tpu", "from foundationpose_tpu"):
+            assert banned not in src, (path, banned)
 
 
 def test_cuda_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    from foundationpose_torch.meshio import make_box
     from foundationpose_torch.torch_config import default_device
-    from foundationpose_tpu.meshio import make_box
     from foundationpose_torch.pipeline import FoundationPose
 
     assert default_device("cpu").type == "cpu"
@@ -102,17 +107,24 @@ def test_tf32_is_off():
 
 
 def test_kernel_sources_and_build_key():
-    """Both kernels are CUDA sources in the package, keyed by content."""
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    """Every kernel is a CUDA source in the package, keyed by content; K3
+    and K4 share segment_add.cu and so one library."""
+    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
     from foundationpose_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
 
-    for k in (raster_cuda.KERNEL, attention_cuda.KERNEL):
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    for k in kernels:
         assert os.path.exists(os.path.join(CSRC_DIR, k.source))
         assert "arch=compute_90a,code=sm_90a" in k.flags
         path = k.path()
         assert path.startswith(BUILD_DIR) and path.endswith(".so")
     assert "--fmad=false" in raster_cuda.KERNEL.flags
-    assert raster_cuda.KERNEL.path() != attention_cuda.KERNEL.path()
+    assert len({k.path() for k in kernels[:3]}) == 3
+    assert segment_add_cuda.K3.path() == segment_add_cuda.K4.path()
+    assert segment_add_cuda.K3.source == "segment_add.cu"
+    with open(os.path.join(CSRC_DIR, "segment_add.cu")) as f:
+        src = f.read()
+    assert "atomicAdd" in src and "__float2bfloat16_rn" in src
 
 
 def test_unsupported_device_raises():
