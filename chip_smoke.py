@@ -15,11 +15,12 @@ with a nonzero exit and no result line):
    the camera, tiny object; masks bit-equal, max |d| < 2e-4 on smooth
    pixels, < 4% of covered pixels off by more than 1e-3;
 4. K2, the attention core, against its plain version in bf16 (< 2e-3)
-   and f32 (< 1e-4);
+   and f32 (< 1e-4) at the main path's shapes and edge shapes (L = 1,
+   L = 513, head widths 8, 24, 5 and 100);
 5. K3 and K4, the hash-grid backward's segment-adds, against their plain
    versions at the shapes of NerfCfg's defaults (per-row bound 1e-5 of
    the row's sum of |update|: atomics add in another order each run),
-   and their times;
+   and their times (K3 in turns with its plain version and index_add_);
 6. small slices on the card against the CPU plain path: an f32 register
    + track, and 3 f32 NeRF train steps per grid layout from the same
    parameters and pinned draws;
@@ -28,8 +29,11 @@ with a nonzero exit and no result line):
    register(iteration=5) over the 252-hypothesis grid and
    3 x track_one(iteration=2), with the kernels' launch counts read
    around that run; then times: each kernel against its plain version at
-   the main path's shapes, register wall time, per-frame track time,
-   stage times;
+   the main path's shapes (K2 in turns with its plain version and
+   scaled_dot_product_attention, also at (1, 252) and (1, 400)), register
+   wall time, per-frame track time, stage times, and 3 traced registers
+   (device busy time and idle share, the kernels and operators that own
+   the device time);
 8. the model-free path: run_neural_object_field (NerfCfg defaults,
    n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
    mesh held against the bench mesh (extents within 25%, median vertex
@@ -37,10 +41,12 @@ with a nonzero exit and no result line):
    then 20 "cuda"-layout steps; launch counts read around that run; then
    its times (train step, extraction, bake, register, peak memory) and a
    traced pass of 10 train steps per layout (device busy time and idle
-   share, the operators that own the device time).
+   share, the kernels and operators that own the device time).
 
-Prints a {"kernels": [...]} JSON line, then as its last line
-{"ok": true, "device": {...}}.
+Every kernel's bound is computed from this run's inputs (`bound`: the
+bytes it must move over the memory rate or its operations over the peak
+rate, whichever is larger). Prints a {"kernels": [...]} JSON line, then as
+its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -94,6 +100,37 @@ def _event_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# device memory 3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
+# f32 outside them.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(nbytes, ops, kind):
+    """The least time the card could take: the larger of the bytes that
+    must move (each input read once, each output written once) over the
+    memory rate and the operations over the peak rate of their type.
+    Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _in_turns(fns, reps):
+    """Times each fn by CUDA events in the order a, b, c, c, b, a (one
+    card, one call); returns the mean of its two times per fn."""
+    order = list(fns) + list(reversed(fns))
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(_event_ms(fns[k], reps=reps))
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
 # ------------------------------------------------------------- phases
 
 
@@ -133,7 +170,7 @@ def build_phase():
     for k, (path, sec) in zip(libs, results):
         print(f"built {k.source} -> {path} in {sec:.2f} s")
         for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print("   ", line.strip())
 
 
@@ -246,16 +283,24 @@ def k1_phase():
     return err
 
 
-ATTN_SHAPES = [(252, 400, 512, 4), (1, 252, 512, 4), (2, 20, 256, 2)]
+ATTN_SHAPES = [
+    (252, 400, 512, 4), (1, 252, 512, 4), (1, 400, 512, 4),  # the main path's shapes
+    (2, 20, 256, 2),
+    (2, 1, 512, 4), (2, 513, 512, 4),  # L = 1; ragged L past 8 key tiles
+    (3, 9, 24, 3), (2, 77, 48, 2),  # dh = 8, 24: not multiples of 16
+    (2, 50, 20, 4), (1, 130, 200, 2),  # dh = 5, 100: element loads, padded head
+]
 
 
 def k2_phase():
+    """Returns the largest bf16 error over ATTN_SHAPES; prints the one at
+    the main shape (the first)."""
     import torch
 
     from foundationpose_torch.ops.attention import attention_core_plain
     from foundationpose_torch.ops.attention_cuda import attention_core_cuda
 
-    err = 0.0
+    err = {}
     for dtype, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-4)):
         for B, L, D, H in ATTN_SHAPES:
             g = torch.Generator().manual_seed(3)
@@ -263,12 +308,14 @@ def k2_phase():
             d = (attention_core_cuda(x, H).float() - attention_core_plain(x, H).float())
             torch.cuda.synchronize()
             e = float(d.abs().max())
-            print(f"  K2 {str(dtype)[6:]} B={B} L={L} D={D} H={H}: max |d| {e:.3e} (< {tol})")
+            print(f"  K2 {str(dtype)[6:]} B={B} L={L} D={D} H={H}: max |d| {e:.3e} (< {tol}), "
+                  f"share of outputs not equal to plain {float((d != 0).float().mean()):.2e}")
             if not e < tol:
                 raise AssertionError("K2 disagrees with its plain version")
             if dtype == torch.bfloat16:
-                err = max(err, e)
-    return err
+                err[(B, L, D, H)] = e
+    print(f"  K2 bf16 at the main shape {ATTN_SHAPES[0]}: max |d| {err[ATTN_SHAPES[0]]:.3e}")
+    return max(err.values())
 
 
 def _estimator(mesh, cfg, device, seed=0, head_scale=0.0):
@@ -381,6 +428,7 @@ def timing_phase(est, frame, n_hyp):
     from foundationpose_torch.geometry.projection import compute_crop_window_tf
     from foundationpose_torch.ops.attention import attention_core_plain
     from foundationpose_torch.ops.attention_cuda import attention_core_cuda
+    from foundationpose_torch.ops.raster_cuda import _records as raster_cuda_records
     from foundationpose_torch.ops.raster_cuda import raster_shade
     from foundationpose_torch.ops.rasterizer import _prepare, shade_brute
     from foundationpose_torch.pipeline.crops import make_crop_inputs
@@ -396,10 +444,33 @@ def timing_phase(est, frame, n_hyp):
                     mt.vnormals, True, False, None, True)
     t["k1_ms"] = _event_ms(lambda: raster_shade(prep, None, 0.8, 0.5), reps=10)
     t["k1_plain_ms"] = _event_ms(lambda: shade_brute(prep, None, 0.8, 0.5), reps=2)
-    x = (torch.rand((252, 400, 1536), generator=torch.Generator().manual_seed(4)) * 2 - 1)
-    x = x.to("cuda", torch.bfloat16)
-    t["k2_ms"] = _event_ms(lambda: attention_core_cuda(x, 4), reps=20)
-    t["k2_plain_ms"] = _event_ms(lambda: attention_core_plain(x, 4), reps=20)
+    # K1's bound: its records, chunk boxes, faces and vertex data read once,
+    # color, xyz and mask written once; operations: each covered pixel's
+    # three edge functions and one multiply-add per value it writes (f32).
+    color, xyz, normal, mask = raster_shade(prep, None, 0.8, 0.5)
+    covered = int(mask.sum())
+    n_out = color.shape[-1] + xyz.shape[-1] + (normal.shape[-1] if normal is not None else 0)
+    t["k1_bound_ms"], t["k1_bound_by"] = bound(
+        _nbytes(*raster_cuda_records(prep), prep.vdata, color, xyz, normal, mask),
+        2 * covered * (3 + n_out), "f32")
+    t["k1_library_ms"] = None  # no one PyTorch call rasterizes
+
+    # K2 at the main path's shapes: the kernel, its plain version and one
+    # PyTorch call of the same function (scaled_dot_product_attention on
+    # (B, H, L, dh) views of the same packed qkv; a yardstick only, which
+    # the port never calls), timed in turns.
+    for B, L, reps in ((252, 400, 10), (1, 252, 50), (1, 400, 50)):
+        x = (torch.rand((B, L, 1536), generator=torch.Generator().manual_seed(4)) * 2 - 1)
+        x = x.to("cuda", torch.bfloat16)
+        q, k, v = (a.view(B, L, 4, 128).transpose(1, 2) for a in x.split(512, dim=-1))
+        key = "k2" if B == 252 else f"k2_b{B}_l{L}"
+        t.update(_in_turns({
+            f"{key}_ms": lambda: attention_core_cuda(x, 4),
+            f"{key}_plain_ms": lambda: attention_core_plain(x, 4),
+            f"{key}_library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        }, reps))
+        t[f"{key}_bound_ms"], t[f"{key}_bound_by"] = bound(
+            _nbytes(x) + B * L * 512 * x.element_size(), 4 * B * 4 * L * L * 128, "bf16")
 
     # Stages of one refine iteration at the main path's batch.
     rgb = torch.as_tensor(frame[0], device="cuda").float() / 255.0
@@ -437,9 +508,14 @@ def timing_phase(est, frame, n_hyp):
         trk.append(time.perf_counter() - t0)
     t["track_ms_median10"] = float(np.median(trk)) * 1e3
     t["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    for k, v in t.items():
-        print(f"  {k} = {v:.3f}   [{_CARD}]")
+    t.update(_profile("register", lambda: est.register(K_FULL, *frame, iteration=5), 3))
+    _print_times(t)
     return t
+
+
+def _print_times(t):
+    for k, v in t.items():
+        print(f"  {k} = {v if isinstance(v, str) or v is None else f'{v:.6g}'}   [{_CARD}]")
 
 
 # ------------------------------------------------- model-free path (K3, K4)
@@ -488,8 +564,16 @@ def k3_k4_phase():
     want = segment_add_planes_plain(idx, upd, T)
     res["k3_err"] = _row_check(f"K3 M={M} C=2 T={T}", out, want, segment_add_planes_plain(idx, upd.abs(), T))
     del out, want
-    res["k3_ms"] = _event_ms(lambda: segment_add_planes_cuda(idx, upd, T), reps=5)
-    res["k3_plain_ms"] = _event_ms(lambda: segment_add_planes_plain(idx, upd, T), reps=3)
+    # K3's library call: index_add_ into a zeroed table with a spare row
+    # for the drop sentinel (its plain version is built on it).
+    res.update(_in_turns({
+        "k3_ms": lambda: segment_add_planes_cuda(idx, upd, T),
+        "k3_plain_ms": lambda: segment_add_planes_plain(idx, upd, T),
+        "k3_library_ms": lambda: torch.zeros((T + 1, 2), device=dev).index_add_(0, idx, upd.T),
+    }, reps=3))
+    # Bound: indices and updates read once, the (T, 2) f32 table written
+    # once; one f32 add per update and channel.
+    res["k3_bound_ms"], res["k3_bound_by"] = bound(_nbytes(idx, upd) + T * 2 * 4, 2 * M, "f32")
     del idx, upd
 
     sz = torch.as_tensor(sizes, device=dev)
@@ -508,8 +592,12 @@ def k3_k4_phase():
     del out, want
     res["k4_ms"] = _event_ms(lambda: factored_segment_add_cuda(idx, w, gp, T), reps=5)
     res["k4_plain_ms"] = _event_ms(lambda: factored_segment_add_plain(idx, w, gp, T), reps=3)
-    for k in ("k3_ms", "k3_plain_ms", "k4_ms", "k4_plain_ms"):
-        print(f"  {k} = {res[k]:.3f}   [{_CARD}]")
+    res["k4_library_ms"] = None  # no one PyTorch call forms and adds the outer products
+    # Bound: indices, weights and cotangents read once, the (T, 16) f32
+    # table written once; a product and an add per (level, point, column).
+    res["k4_bound_ms"], res["k4_bound_by"] = bound(
+        _nbytes(idx, w, gp) + T * 16 * 4, 2 * 16 * L * N, "f32")
+    _print_times({k: v for k, v in res.items() if not k.endswith("_err")})
     return res
 
 
@@ -727,35 +815,39 @@ def nerf_timing_phase(t, runner, cuda_runner, views, est, frame):
         reg.append(time.perf_counter() - t0)
     t["register_recon_ms_median3"] = float(np.median(reg)) * 1e3
     for name, r in (("oct", runner), ("cuda", cuda_runner)):
-        t.update(_profile_steps(name, r))
-    for k, v in t.items():
-        print(f"  {k} = {v:.3f}   [{_CARD}]")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        t.update(_profile(f"{name}_step", lambda: float(r.train_step(gen)[0]), PROFILE_STEPS))
+    _print_times(t)
     return t
 
 
 PROFILE_STEPS = 10
 
 
-def _device_busy_us(trace_path):
-    """Union of the device activity intervals (kernels, memsets, copies)
-    in a chrome trace written by torch.profiler, and their count."""
+def _device_time_us(trace_path):
+    """From a chrome trace written by torch.profiler: the union of the
+    device activity intervals (kernels, memsets, copies), their count, and
+    each kernel name's summed duration."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    acts = [e for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
     busy, end = 0.0, -np.inf
-    for a, b in spans:
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in acts):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    return busy, len(spans)
+    by_kernel = {}
+    for e in acts:
+        if e["cat"] == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
+    return busy, len(acts), by_kernel
 
 
-def _profile_steps(name, runner):
-    """Where a train step's time goes, in this run. Two traced passes of
-    PROFILE_STEPS steps, each step ended by reading its loss: a CUDA-only
-    trace (little host cost) gives the device's busy time and idle share
-    over the pass's host wall time; a CPU + CUDA trace gives the operators
-    that own the device time, printed in order."""
+def _profile(name, fn, n):
+    """Where the time of `fn` (which ends by reading a result on the host)
+    goes, in this run. n calls untraced; n calls under a CUDA-only trace
+    (little host cost): the device's busy time, its idle share over the
+    traced host wall time and the kernels that own the device time; then n
+    calls under a CPU + CUDA trace: the operators that own it. All per call."""
     import os
 
     import torch
@@ -763,40 +855,42 @@ def _profile_steps(name, runner):
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
-    gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def steps():
-        for _ in range(PROFILE_STEPS):
-            float(runner.train_step(gen)[0])
+    def calls():
+        for _ in range(n):
+            fn()
 
-    steps()  # warm-up
+    calls()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps()
-    plain_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    calls()
+    plain_ms = (time.perf_counter() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        steps()
-        wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    path = os.path.join(out_dir, f"nerf_step_{name}_cuda_only.json")
+        calls()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    path = os.path.join(out_dir, f"{name}_cuda_only.json")
     prof.export_chrome_trace(path)
-    busy_us, n_act = _device_busy_us(path)
+    busy_us, n_act, by_kernel = _device_time_us(path)
     if n_act == 0:
         raise AssertionError("the CUDA-only trace holds no device activity")
-    busy_ms = busy_us / 1e3 / PROFILE_STEPS
-    print(f"  {name} step: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
-          f"device busy {busy_ms:.3f} ms, {n_act / PROFILE_STEPS:.0f} device activities per step")
+    busy_ms = busy_us / 1e3 / n
+    print(f"  {name}: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
+          f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities per call")
+    for k, us in sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]:
+        short = k.replace("void ", "").replace("at::native::", "").replace("(anonymous namespace)::", "")
+        print(f"    kernel {short[:110]:110s} {us / 1e3 / n:8.3f} ms/call")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        steps()
+        calls()
     ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        print(f"    {e.key[:48]:48s} {e.self_device_time_total / 1e3 / PROFILE_STEPS:8.3f} ms/step "
-              f"{e.count / PROFILE_STEPS:6.0f} calls/step")
-    return {f"{name}_step_ms_untraced_{PROFILE_STEPS}": plain_ms,
-            f"{name}_step_ms_cuda_traced": wall_ms,
-            f"{name}_step_device_busy_ms": busy_ms,
-            f"{name}_step_device_idle_share": 1.0 - busy_ms / wall_ms}
+        print(f"    op {e.key[:48]:48s} {e.self_device_time_total / 1e3 / n:8.3f} ms/call "
+              f"{e.count / n:6.0f} calls/call")
+    return {f"{name}_ms_untraced_{n}": plain_ms,
+            f"{name}_ms_cuda_traced": wall_ms,
+            f"{name}_device_busy_ms": busy_ms,
+            f"{name}_device_idle_share": 1.0 - busy_ms / wall_ms}
 
 
 def main():
@@ -815,27 +909,22 @@ def main():
     mf_counts, t_mf, mf = phase("model-free path: reconstruct, register, cuda layout", 420, model_free_phase)
     t.update(phase("model-free timing and step profile", 240, nerf_timing_phase, t_mf, *mf))
 
+    def entry(name, source, replaces, launches, err, key, times):
+        return {"name": name, "route": "cuda", "source": f"foundationpose_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": times[f"{key}_ms"], "plain_ms": times[f"{key}_plain_ms"],
+                "bound_ms": times[f"{key}_bound_ms"], "bound_by": times[f"{key}_bound_by"],
+                "library_ms": times[f"{key}_library_ms"]}
+
     kernels = [
-        {"name": "K1 tile rasterizer", "route": "cuda",
-         "source": "foundationpose_torch/csrc/raster.cu",
-         "replaces": "foundationpose_tpu/ops/pallas_raster2.py:69",
-         "launches": counts["raster"] + mf_counts["raster"], "max_abs_err": k1_err,
-         "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"]},
-        {"name": "K2 attention core", "route": "cuda",
-         "source": "foundationpose_torch/csrc/attention.cu",
-         "replaces": "foundationpose_tpu/ops/attention.py:44",
-         "launches": counts["attention"] + mf_counts["attention"], "max_abs_err": k2_err,
-         "ms": t["k2_ms"], "plain_ms": t["k2_plain_ms"]},
-        {"name": "K3 segment-add", "route": "cuda",
-         "source": "foundationpose_torch/csrc/segment_add.cu",
-         "replaces": "foundationpose_tpu/ops/pallas_scatter.py:43",
-         "launches": mf_counts["k3"], "max_abs_err": seg["k3_err"],
-         "ms": seg["k3_ms"], "plain_ms": seg["k3_plain_ms"]},
-        {"name": "K4 factored segment-add", "route": "cuda",
-         "source": "foundationpose_torch/csrc/segment_add.cu",
-         "replaces": "foundationpose_tpu/ops/pallas_scatter.py:275",
-         "launches": mf_counts["k4"], "max_abs_err": seg["k4_err"],
-         "ms": seg["k4_ms"], "plain_ms": seg["k4_plain_ms"]},
+        entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
+              counts["raster"] + mf_counts["raster"], k1_err, "k1", t),
+        entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
+              counts["attention"] + mf_counts["attention"], k2_err, "k2", t),
+        entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",
+              mf_counts["k3"], seg["k3_err"], "k3", seg),
+        entry("K4 factored segment-add", "segment_add.cu",
+              "foundationpose_tpu/ops/pallas_scatter.py:275", mf_counts["k4"], seg["k4_err"], "k4", seg),
     ]
     print(_CARD)
     print(json.dumps({"kernels": kernels}))

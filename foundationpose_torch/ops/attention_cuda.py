@@ -3,8 +3,11 @@
 Replaces the Pallas TPU kernel foundationpose_tpu/ops/attention.py
 ::_mha_kernel (call at _attention_core_pallas). The plain form is bound
 by the bytes of its (B, H, L, L) logits; the kernel keeps them on chip
-(flash form, softmax statistics in registers; see csrc/attention.cu).
-Reached through ops/attention.py::attention_core for CUDA tensors.
+and is bound by reading qkv and writing the output once. bf16 runs both
+products on the tensor cores (mma.sync, two passes over the keys so that
+the weights are normalized before they are rounded); f32 runs on the
+CUDA cores, never in TF32 (see csrc/attention.cu). Reached through
+ops/attention.py::attention_core for CUDA tensors.
 """
 from __future__ import annotations
 

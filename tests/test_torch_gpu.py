@@ -24,7 +24,15 @@ def card():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("B,L,D,H", [(2, 20, 256, 2), (1, 252, 512, 4), (4, 400, 512, 4), (3, 9, 24, 3)])
+@pytest.mark.parametrize(
+    "B,L,D,H",
+    [
+        (2, 20, 256, 2), (1, 252, 512, 4), (4, 400, 512, 4),  # main-path widths
+        (3, 9, 24, 3), (2, 77, 48, 2),  # dh = 8, 24: not multiples of 16
+        (2, 1, 512, 4), (2, 513, 512, 4),  # L = 1; ragged L past 8 key tiles
+        (2, 50, 20, 4), (1, 130, 200, 2),  # dh = 5, 100: element loads, padded head
+    ],
+)
 def test_attention_kernel_matches_plain(card, dtype, tol, B, L, D, H):
     x = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (B, L, 3 * D)), dtype=torch.float32)
     x = x.to(card, dtype)
@@ -39,7 +47,7 @@ def test_attention_kernel_matches_plain(card, dtype, tol, B, L, D, H):
 def test_raster_kernel_matches_brute(card, cull, texture, normal):
     from foundationpose_torch.geometry.icosphere import icosphere
     from foundationpose_torch.geometry.rotations import so3_exp_map
-    from foundationpose_tpu.meshio import compute_vertex_normals
+    from foundationpose_torch.meshio import compute_vertex_normals
 
     verts, faces = icosphere(3, radius=0.1)
     rng = np.random.default_rng(0)

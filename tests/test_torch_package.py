@@ -71,6 +71,14 @@ def test_cpu_register_imports_no_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def _assert_no_jax_imports(paths):
+    for path in paths:
+        with open(path) as fh:
+            src = fh.read()
+        for banned in ("import jax", "from jax", "import foundationpose_tpu", "from foundationpose_tpu"):
+            assert banned not in src, (path, banned)
+
+
 def test_package_sources_import_no_jax():
     """Neither the package nor chip_smoke.py imports JAX or the JAX
     package."""
@@ -78,11 +86,12 @@ def test_package_sources_import_no_jax():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _dirs, files in os.walk(root):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    for path in paths:
-        with open(path) as fh:
-            src = fh.read()
-        for banned in ("import jax", "from jax", "import foundationpose_tpu", "from foundationpose_tpu"):
-            assert banned not in src, (path, banned)
+    _assert_no_jax_imports(paths)
+
+
+def test_card_tests_import_no_jax():
+    """The card's tests run where JAX is not installed."""
+    _assert_no_jax_imports([os.path.join(REPO, "tests", "test_torch_gpu.py")])
 
 
 def test_cuda_without_card_raises():
@@ -125,6 +134,11 @@ def test_kernel_sources_and_build_key():
     with open(os.path.join(CSRC_DIR, "segment_add.cu")) as f:
         src = f.read()
     assert "atomicAdd" in src and "__float2bfloat16_rn" in src
+    with open(os.path.join(CSRC_DIR, "attention.cu")) as f:
+        src = f.read()
+    # bf16 products on the tensor cores, operands through ldmatrix and cp.async
+    for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", "ldmatrix", "cp.async"):
+        assert op in src, op
 
 
 def test_unsupported_device_raises():
