@@ -12,8 +12,10 @@ with a nonzero exit and no result line):
 3. K1, the tile rasterizer, against the plain brute path at the main
    path's crop shape (16 poses, 160x160, ~5k-face mesh, vertex colors,
    light, culling off and on) and the probes: one pose, object behind
-   the camera, tiny object; masks bit-equal, max |d| < 2e-4 on smooth
-   pixels, < 4% of covered pixels off by more than 1e-3;
+   the camera, tiny object, slivers in front of a plane (their rounded
+   edge tests accept pixels far outside their bboxes); masks bit-equal,
+   max |d| < 2e-4 on smooth pixels, < 4% of covered pixels off by more
+   than 1e-3; K1's face boxes bit-equal to their plain version;
 4. K2, the attention core, against its plain version in bf16 (< 2e-3)
    and f32 (< 1e-4) at the main path's shapes and edge shapes (L = 1,
    L = 513, head widths 8, 24, 5 and 100);
@@ -28,8 +30,13 @@ with a nonzero exit and no result line):
    160x160 crops, bf16, random weights from a seed, zeroed delta heads):
    register(iteration=5) over the 252-hypothesis grid and
    3 x track_one(iteration=2), with the kernels' launch counts read
-   around that run; then times: each kernel against its plain version at
-   the main path's shapes (K2 in turns with its plain version and
+   around that run; then K1 against the brute path at the timed shape
+   (the 252 grid poses, 160x160, culling) and its wrapper run under
+   torch.cuda.set_sync_debug_mode("error"); then times: each kernel
+   against its plain version at the main path's shapes (K1 alone from
+   prepared face boxes in turns with its whole wrapper, `k1_wrapper_ms`,
+   and the faces it tests per pixel from its own counts; K2 in turns
+   with its plain version and
    scaled_dot_product_attention, also at (1, 252) and (1, 400)), register
    wall time, per-frame track time, stage times, and 3 traced registers
    (device busy time and idle share, the kernels and operators that own
@@ -39,6 +46,7 @@ with a nonzero exit and no result line):
    mesh held against the bench mesh (extents within 25%, median vertex
    distance < 5 mm, 1024^2 texture), register on the reconstruction,
    then 20 "cuda"-layout steps; launch counts read around that run; then
+   K1 against the brute path on the reconstruction at 32 register crops,
    its times (train step, extraction, bake, register, peak memory) and a
    traced pass of 10 train steps per layout (device busy time and idle
    share, the kernels and operators that own the device time).
@@ -223,12 +231,96 @@ def render_criterion(ref, out):
     return int((mr != mo).sum()), smooth_max, big / max(int(mr.sum()), 1), covered_max
 
 
+def _k1_gate(name, ref, out):
+    """The K1 criterion on one probe; returns the max |d| over covered pixels."""
+    import torch
+
+    torch.cuda.synchronize()
+    mism, smooth_max, edge, covered_max = render_criterion(ref, out)
+    print(f"  K1 {name}: mask mismatches {mism}, covered {int(ref.mask.sum())}, "
+          f"smooth max |d| {smooth_max:.3e}, share > 1e-3 {edge:.5f}, "
+          f"covered max |d| {covered_max:.3e}")
+    if mism or smooth_max >= 2e-4 or edge >= 0.04:
+        raise AssertionError(f"K1 {name} fails the criterion")
+    return covered_max
+
+
+def _k1_boxes(name, prep):
+    """K1's face-box kernel against its plain version (raster_cuda._records):
+    bit-equal. Prints the faces whose box is widened past half a pixel by
+    the sliver bound and those that are unbounded."""
+    import torch
+
+    from foundationpose_torch.ops.raster_cuda import _records, kernel_boxes
+
+    fk, ck = kernel_boxes(prep)
+    fp, cp = _records(prep)
+    torch.cuda.synchronize()
+    if not (torch.equal(fk, fp) and torch.equal(ck, cp)):
+        bad = int((fk != fp).any(-1).sum())
+        raise AssertionError(f"K1 {name}: face boxes differ from the plain version on {bad} faces")
+    F = prep.coeffs.shape[1]
+    ok = prep.coeffs[..., 9] > 0
+    box = fp[:, :F][ok]
+    unbounded = int((box[:, 1] >= 1e30).sum())
+    pad = (box - prep.bbox[ok]).abs().amax(-1)
+    pad = pad[box[:, 1] < 1e30]
+    print(f"  K1 {name}: boxes bit-equal to plain; valid faces {int(ok.sum())}, "
+          f"widened > 0.5 px {int((pad > 0.5).sum())}, unbounded {unbounded}, "
+          f"largest pad {float(pad.max()) if pad.numel() else 0.0:.3e} px")
+
+
+def _k1_prepared(name, prep, tex=None):
+    """raster_shade against shade_brute on one prepared batch, and the boxes."""
+    from foundationpose_torch.ops.raster_cuda import raster_shade
+    from foundationpose_torch.ops.rasterizer import RenderOutput, shade_brute
+
+    out = RenderOutput(*raster_shade(prep, tex, 0.8, 0.5))
+    ref = RenderOutput(*shade_brute(prep, tex, 0.8, 0.5))
+    err = _k1_gate(name, ref, out)
+    _k1_boxes(name, prep)
+    return err
+
+
+# Slivers whose rounded edge test accepts pixels 7-47 px outside their
+# bbox in a 160x160 frame (found by a seeded search like the sweep of
+# tests/test_torch_raster.py, which also checks them), and last a sliver
+# whose vertices were recorded to three decimals (so rounded, it no
+# longer escapes).
+ESCAPERS = [
+    [[99.1486587524414, 78.82369995117188], [123.34191131591797, 86.75849151611328], [102.77344512939453, 80.01254272460938]],
+    [[95.58267974853516, 61.46034240722656], [50.609127044677734, 111.71696472167969], [69.16873168945312, 90.9771499633789]],
+    [[29.812515258789062, 71.01371765136719], [20.24817657470703, 131.93894958496094], [23.83448600769043, 109.09400939941406]],
+    [[155.26461791992188, 109.67045593261719], [159.01321411132812, 101.51575469970703], [158.99005126953125, 101.56616973876953]],
+    [[123.79788208007812, 123.70269775390625], [155.23565673828125, 35.334049224853516], [151.65969848632812, 45.3857307434082]],
+    [[135.51797485351562, 110.35066986083984], [155.1244354248047, 50.99928665161133], [145.00608825683594, 81.62884521484375]],
+    [[141.71031188964844, 104.97235107421875], [25.474990844726562, 146.6495819091797], [103.12737274169922, 118.80668640136719]],
+    [[46.31814193725586, 36.059940338134766], [87.65369415283203, 91.79170227050781], [62.2302360534668, 57.51384735107422]],
+    [[96.55662536621094, 137.51416015625], [12.705251693725586, 122.51629638671875], [44.2486457824707, 128.15823364257812]],
+    [[95.58979797363281, 111.78732299804688], [149.62335205078125, 145.29025268554688], [102.18024444580078, 115.8736572265625]],
+    [[31.467, 98.069], [137.861, 105.520], [109.494, 103.533]],
+]
+
+
+def sliver_scene():
+    """ESCAPERS at z = 1 in front of a plane at z = 2 that fills a 160x160
+    frame: with K = I and the identity pose the screen coordinates are
+    exactly the listed ones. Returns (verts (V, 3), faces (F, 3))."""
+    tri = np.float32(ESCAPERS)
+    sl = np.concatenate([tri.reshape(-1, 2), np.ones((tri.size // 2, 1), np.float32)], -1)
+    corners = np.float32([[-8, -8], [168, -8], [168, 168], [-8, 168]]) * 2
+    plane = np.concatenate([corners, np.full((4, 1), 2.0, np.float32)], -1)
+    n = len(sl)
+    faces = np.concatenate([np.arange(n).reshape(-1, 3), n + np.array([[0, 1, 2], [0, 2, 3]])])
+    return np.concatenate([sl, plane]).astype(np.float32), faces.astype(np.int64)
+
+
 def k1_phase():
     import torch
 
     from foundationpose_torch.geometry.icosphere import sample_views_icosphere
     from foundationpose_torch.geometry.projection import compute_crop_window_tf
-    from foundationpose_torch.ops.rasterizer import render_mesh, render_mesh_brute
+    from foundationpose_torch.ops.rasterizer import _prepare, render_mesh, render_mesh_brute
     from foundationpose_torch.meshio import compute_mesh_diameter
 
     dev = torch.device("cuda")
@@ -248,23 +340,19 @@ def k1_phase():
     # full 160x160 view for the uncropped probes
     K_probe = T([[600.0, 0, 80.0], [0, 600.0, 80.0], [0, 0, 1.0]])
 
-    def check(name, P, crop=True, **extra):
+    def check(name, P, crop=True, pos=pos, faces=faces, K=None, **extra):
         Pt = T(P)
-        K = Kt if crop else K_probe
+        K = K if K is not None else (Kt if crop else K_probe)
         kw = dict(out_hw=(160, 160), vertex_color=colors, vnormals=vn, use_light=True)
         if crop:
             kw["crop_tf"] = compute_crop_window_tf(Pt, Kt, 1.2, 160, diam)
         kw.update(extra)
-        out = render_mesh(pos, faces, Pt, K, **kw)
-        ref = render_mesh_brute(pos, faces, Pt, K, **kw)
-        torch.cuda.synchronize()
-        mism, smooth_max, edge, covered_max = render_criterion(ref, out)
-        print(f"  K1 {name}: mask mismatches {mism}, covered {int(ref.mask.sum())}, "
-              f"smooth max |d| {smooth_max:.3e}, share > 1e-3 {edge:.5f}, "
-              f"covered max |d| {covered_max:.3e}")
-        if mism or smooth_max >= 2e-4 or edge >= 0.04:
-            raise AssertionError(f"K1 {name} fails the criterion")
-        return covered_max
+        err = _k1_gate(name, render_mesh_brute(pos, faces, Pt, K, **kw), render_mesh(pos, faces, Pt, K, **kw))
+        _k1_boxes(name, _prepare(
+            pos, faces, Pt, K, kw["out_hw"], kw.get("crop_tf"), kw["vertex_color"], kw.get("uv"),
+            kw["vnormals"], kw["use_light"], kw.get("get_normal", False), None,
+            kw.get("cull_backfaces", False)))
+        return err
 
     err = 0.0
     for cull in (False, True):
@@ -280,6 +368,13 @@ def k1_phase():
     tiny = poses[:1].copy()
     tiny[0, 2, 3] = 30.0  # ~5 px across: many faces per pixel
     err = max(err, check("tiny object", tiny, crop=False))
+    # Slivers in front of a plane: the brute path covers pixels far outside
+    # their bboxes, which K1's widened boxes must hold.
+    sv, sf = sliver_scene()
+    err = max(err, check("slivers + plane", np.eye(4, dtype=np.float32)[None], crop=False,
+                         pos=T(sv), faces=torch.as_tensor(sf, device=dev), K=T(np.eye(3)),
+                         vertex_color=T(np.random.default_rng(3).uniform(0.1, 1, (len(sv), 3))),
+                         vnormals=T(np.tile([0.0, 0.0, -1.0], (len(sv), 1)))))
     return err
 
 
@@ -428,8 +523,7 @@ def timing_phase(est, frame, n_hyp):
     from foundationpose_torch.geometry.projection import compute_crop_window_tf
     from foundationpose_torch.ops.attention import attention_core_plain
     from foundationpose_torch.ops.attention_cuda import attention_core_cuda
-    from foundationpose_torch.ops.raster_cuda import _records as raster_cuda_records
-    from foundationpose_torch.ops.raster_cuda import raster_shade
+    from foundationpose_torch.ops import raster_cuda
     from foundationpose_torch.ops.rasterizer import _prepare, shade_brute
     from foundationpose_torch.pipeline.crops import make_crop_inputs
 
@@ -442,16 +536,42 @@ def timing_phase(est, frame, n_hyp):
     ctf = compute_crop_window_tf(poses, Kt, 1.2, res, est._diam)
     prep = _prepare(mt.pos, mt.faces, poses, Kt, (res, res), ctf, mt.vertex_color, mt.uv,
                     mt.vnormals, True, False, None, True)
-    t["k1_ms"] = _event_ms(lambda: raster_shade(prep, None, 0.8, 0.5), reps=10)
+    t["k1_err_timed_shape"] = _k1_prepared(f"timed shape ({len(poses)} grid poses, {res}x{res}, cull)", prep)
+    # No host synchronisation inside a render of checked mesh tensors.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        raster_cuda.raster_shade(prep, None, 0.8, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  K1 raster_shade ran under torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+    # K1 alone (raster_kernel from prepared face boxes) in turns with the
+    # whole wrapper (box kernel + raster_kernel + allocations; before the
+    # redesign k1_ms timed that wrapper with its record prep and a sync).
+    boxes = raster_cuda.kernel_boxes(prep)
+    t.update(_in_turns({
+        "k1_ms": lambda: raster_cuda.kernel_shade(prep, boxes, None, 0.8, 0.5),
+        "k1_wrapper_ms": lambda: raster_cuda.raster_shade(prep, None, 0.8, 0.5),
+        "k1_boxes_ms": lambda: raster_cuda.kernel_boxes(prep),
+    }, reps=20))
     t["k1_plain_ms"] = _event_ms(lambda: shade_brute(prep, None, 0.8, 0.5), reps=2)
-    # K1's bound: its records, chunk boxes, faces and vertex data read once,
-    # color, xyz and mask written once; operations: each covered pixel's
-    # three edge functions and one multiply-add per value it writes (f32).
-    color, xyz, normal, mask = raster_shade(prep, None, 0.8, 0.5)
+    # Work per pixel from the kernel's own counts (one launch).
+    stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+    raster_cuda.kernel_shade(prep, boxes, None, 0.8, 0.5, stats=stats)
+    n_tile, n_patch, n_round = stats.tolist()
+    n_tiles = len(poses) * (-(-res // raster_cuda.TILE)) ** 2
+    t["k1_tile_list_per_tile"] = n_tile / n_tiles
+    t["k1_faces_tested_per_pixel"] = n_patch / (n_tiles * raster_cuda.TILE**2 // 32)
+    t["k1_rounds_per_tile"] = n_round / n_tiles
+    # K1's bound: its inputs (edge coefficients, inverse depths, faces,
+    # vertex data) read once, color, xyz and mask written once; operations:
+    # each covered pixel's three edge functions and one multiply-add per
+    # value it writes (f32).
+    color, xyz, normal, mask = raster_cuda.raster_shade(prep, None, 0.8, 0.5)
     covered = int(mask.sum())
     n_out = color.shape[-1] + xyz.shape[-1] + (normal.shape[-1] if normal is not None else 0)
     t["k1_bound_ms"], t["k1_bound_by"] = bound(
-        _nbytes(*raster_cuda_records(prep), prep.vdata, color, xyz, normal, mask),
+        _nbytes(prep.coeffs, prep.zinv, prep.faces, prep.vdata, color, xyz, normal, mask),
         2 * covered * (3 + n_out), "f32")
     t["k1_library_ms"] = None  # no one PyTorch call rasterizes
 
@@ -806,6 +926,19 @@ def nerf_timing_phase(t, runner, cuda_runner, views, est, frame):
     bake_texture(runner.mesh_to_real_world(mesh), rgbs, depths, runner.get_optimized_poses_in_real_world(),
                  K_FULL, tex_res=runner.cfg.tex_res, top_views=runner.cfg.tex_top_views, device="cuda")
     t["bake_texture_s"] = time.perf_counter() - t0
+    # K1 on the reconstructed (marching-cubes) mesh at 32 register crops.
+    from foundationpose_torch.geometry.projection import compute_crop_window_tf
+    from foundationpose_torch.ops.rasterizer import _prepare
+
+    mt, res = est.mesh_tensors, est.cfg.refiner.input_res
+    Kt = torch.as_tensor(K_FULL, device="cuda")
+    poses = est.rot_grid[:32].clone()
+    poses[:, :3, 3] = torch.tensor([0.02, -0.01, 0.9], device="cuda")
+    prep = _prepare(mt.pos, mt.faces, poses, Kt, (res, res),
+                    compute_crop_window_tf(poses, Kt, 1.2, res, est._diam), mt.vertex_color, mt.uv,
+                    mt.vnormals, True, False, None, est.cfg.refiner.raster.cull_backfaces)
+    t["k1_err_recon"] = _k1_prepared(f"reconstruction ({len(mt.faces)} faces), 32 register crops",
+                                     prep, mt.tex if mt.uv is not None else None)
     est.register(K_FULL, *frame, iteration=5)  # warm-up
     reg = []
     for _ in range(3):
@@ -878,9 +1011,12 @@ def _profile(name, fn, n):
     busy_ms = busy_us / 1e3 / n
     print(f"  {name}: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
           f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities per call")
-    for k, us in sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:12]:
-        short = k.replace("void ", "").replace("at::native::", "").replace("(anonymous namespace)::", "")
-        print(f"    kernel {short[:110]:110s} {us / 1e3 / n:8.3f} ms/call")
+    ranked = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)
+    ours = ("raster_kernel", "face_box_kernel", "mha_", "seg_add")  # the port's kernels, always
+    for rank, (k, us) in enumerate(ranked):
+        if rank < 12 or any(o in k for o in ours):
+            short = k.replace("void ", "").replace("at::native::", "").replace("(anonymous namespace)::", "")
+            print(f"    kernel #{rank + 1} {short[:106]:106s} {us / 1e3 / n:8.3f} ms/call")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         calls()
     ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
@@ -916,6 +1052,7 @@ def main():
                 "bound_ms": times[f"{key}_bound_ms"], "bound_by": times[f"{key}_bound_by"],
                 "library_ms": times[f"{key}_library_ms"]}
 
+    k1_err = max(k1_err, t["k1_err_timed_shape"], t["k1_err_recon"])
     kernels = [
         entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
               counts["raster"] + mf_counts["raster"], k1_err, "k1", t),

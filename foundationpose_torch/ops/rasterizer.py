@@ -16,6 +16,10 @@ per-face edge coefficients, per-vertex attributes):
   to the tile kernel of ops/raster_cuda.py, which consumes the same
   coefficient tensors and reproduces the brute path's arithmetic; a
   CPU tensor takes the plain version. Any other device raises.
+
+Both check the face indices first (`validate_faces`), once per faces
+tensor, so that a render of checked mesh tensors reads nothing back from
+the card.
 """
 from __future__ import annotations
 
@@ -58,6 +62,29 @@ class _Prepared(NamedTuple):
     n_col: int  # first normal column, -1 without get_normal
     H: int
     W: int
+
+
+def validate_faces(faces: torch.Tensor, n_vertices: int) -> None:
+    """Raise ValueError unless every index in `faces` lies in [0, n_vertices).
+
+    The kernel indexes vertex data with them, so every render checks
+    them, but only once per tensor: a tensor that passed is marked with
+    its vertex count and version counter (which any in-place write
+    bumps), and a later check of the same tensor returns at once. The
+    first check of a CUDA tensor reads its min and max back from the
+    card; `make_mesh_tensors` makes it when it builds the mesh tensors,
+    so the renders of the pipeline never do. Tensors made under
+    torch.inference_mode carry no version counter and are checked on
+    every call."""
+    key = None if faces.is_inference() else (int(n_vertices), faces._version)
+    if key is not None and getattr(faces, "_fp_valid_for", None) == key:
+        return
+    if faces.numel():
+        lo, hi = torch.aminmax(faces)
+        if int(lo) < 0 or int(hi) >= n_vertices:
+            raise ValueError(f"face indices must lie in [0, {n_vertices})")
+    if key is not None:
+        faces._fp_valid_for = key
 
 
 def _screen_vertices(pos, poses, K, crop_tf):
@@ -173,7 +200,7 @@ def _prepare(
     pos = pos.to(torch.float32)
     poses = poses.to(torch.float32)
     K = K.to(torch.float32)
-    faces = faces.to(torch.int64)
+    faces = faces.to(torch.int64).contiguous()
     if crop_tf is not None:
         crop_tf = crop_tf.to(torch.float32)
     if (use_light or get_normal) and vnormals is None:
@@ -330,6 +357,7 @@ def _render(kind, pos, faces, poses, K, *, out_hw, crop_tf=None, vertex_color=No
             cull_backfaces=False) -> RenderOutput:
     if uv is not None and tex is None:
         raise ValueError("uv given without tex")
+    validate_faces(faces, pos.shape[0])
     prep = _prepare(
         pos, faces, poses, K, out_hw, crop_tf, vertex_color, uv, vnormals,
         use_light, get_normal, light_dir, cull_backfaces,
@@ -355,7 +383,9 @@ def render_mesh(pos, faces, poses, K, **kw) -> RenderOutput:
     get_normal, cull_backfaces (exact for closed, outward-wound meshes).
 
     CUDA tensors run the tile kernel (ops/raster_cuda.py); CPU tensors
-    the plain brute path."""
+    the plain brute path. Face indices outside [0, V) raise ValueError;
+    they are checked once per faces tensor (`validate_faces`), so faces
+    from `make_mesh_tensors` are not read back here."""
     return _render("dispatch", pos, faces, poses, K, **kw)
 
 

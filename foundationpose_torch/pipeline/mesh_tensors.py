@@ -9,6 +9,7 @@ import torch
 
 from .. import torch_config  # noqa: F401
 from ..meshio import TriMesh
+from ..ops.rasterizer import validate_faces
 
 
 class MeshTensors(NamedTuple):
@@ -51,7 +52,8 @@ def make_mesh_tensors(
 ) -> MeshTensors:
     """Upload a mesh: texture V-flip (uv[:, 1] = 1 - v), gray vertex
     colors when the mesh has neither texture nor colors, Morton-sorted
-    faces."""
+    faces, checked here once (`validate_faces`) so that renders of them
+    read nothing back from the card."""
     uv = tex = vertex_color = None
     if mesh.has_texture:
         img = mesh.texture
@@ -75,9 +77,11 @@ def make_mesh_tensors(
     faces_np = morton_sort_faces(
         np.asarray(mesh.vertices, np.float64), np.asarray(mesh.faces, np.int64)
     )
+    faces = torch.as_tensor(faces_np, dtype=torch.int64, device=device)
+    validate_faces(faces, len(mesh.vertices))
     return MeshTensors(
         pos=torch.as_tensor(np.asarray(mesh.vertices, np.float32), device=device),
-        faces=torch.as_tensor(faces_np, dtype=torch.int64, device=device),
+        faces=faces,
         vnormals=torch.as_tensor(np.asarray(mesh.vertex_normals, np.float32), device=device),
         vertex_color=vertex_color,
         uv=uv,

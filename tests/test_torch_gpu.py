@@ -43,32 +43,73 @@ def test_attention_kernel_matches_plain(card, dtype, tol, B, L, D, H):
     assert (out.float() - attention_core_plain(x, H).float()).abs().max().item() < tol
 
 
-@pytest.mark.parametrize("cull,texture,normal", [(False, False, False), (True, True, True)])
-def test_raster_kernel_matches_brute(card, cull, texture, normal):
+@pytest.mark.parametrize(
+    "case", ["plain", "cull_texture_normal", "slivers"]
+)
+def test_raster_kernel_matches_brute(card, case):
+    from chip_smoke import sliver_scene
     from foundationpose_torch.geometry.icosphere import icosphere
     from foundationpose_torch.geometry.rotations import so3_exp_map
     from foundationpose_torch.meshio import compute_vertex_normals
 
-    verts, faces = icosphere(3, radius=0.1)
     rng = np.random.default_rng(0)
     T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)  # noqa: E731
-    P = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
-    P[:, :3, :3] = so3_exp_map(torch.as_tensor(rng.normal(size=(6, 3)), dtype=torch.float32)).numpy()
-    P[:, 2, 3] = rng.uniform(0.4, 1.2, 6)
-    K = np.array([[500.0, 0, 100.0], [0, 500.0, 80.0], [0, 0, 1.0]])
-    kw = dict(out_hw=(150, 200), vnormals=T(compute_vertex_normals(verts, faces)),
-              use_light=True, get_normal=normal, cull_backfaces=cull)
-    if texture:
-        kw.update(uv=T(rng.uniform(0, 1, (len(verts), 2))), tex=T(rng.uniform(0, 1, (8, 8, 3))))
+    if case == "slivers":  # slivers whose edge test accepts pixels far outside their bbox
+        verts, faces = sliver_scene()
+        P, K = np.eye(4, dtype=np.float32)[None], np.eye(3)
+        kw = dict(out_hw=(160, 160), vnormals=T(np.tile([0.0, 0.0, -1.0], (len(verts), 1))),
+                  use_light=True, vertex_color=T(rng.uniform(0, 1, (len(verts), 3))))
     else:
-        kw["vertex_color"] = T(rng.uniform(0, 1, (len(verts), 3)))
+        verts, faces = icosphere(3, radius=0.1)
+        P = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
+        P[:, :3, :3] = so3_exp_map(torch.as_tensor(rng.normal(size=(6, 3)), dtype=torch.float32)).numpy()
+        P[:, 2, 3] = rng.uniform(0.4, 1.2, 6)
+        K = np.array([[500.0, 0, 100.0], [0, 500.0, 80.0], [0, 0, 1.0]])
+        full = case == "cull_texture_normal"
+        kw = dict(out_hw=(150, 200), vnormals=T(compute_vertex_normals(verts, faces)),
+                  use_light=True, get_normal=full, cull_backfaces=full)
+        if full:
+            kw.update(uv=T(rng.uniform(0, 1, (len(verts), 2))), tex=T(rng.uniform(0, 1, (8, 8, 3))))
+        else:
+            kw["vertex_color"] = T(rng.uniform(0, 1, (len(verts), 3)))
     args = (T(verts), torch.as_tensor(faces, device=card), T(P), T(K))
     a = render_mesh(*args, **kw)
     b = render_mesh_brute(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(a.mask, b.mask) and a.mask.any()
-    for f in ("color", "xyz") + (("normal",) if normal else ()):
+    for f in ("color", "xyz") + (("normal",) if a.normal is not None else ()):
         assert (getattr(a, f) - getattr(b, f)).abs().max().item() < 2e-4, f
+
+
+def test_raster_boxes_match_plain_and_shade_does_not_sync(card):
+    """The face-box kernel is bit-equal to its plain version, and K1's
+    wrapper synchronises nothing on mesh tensors from make_mesh_tensors."""
+    from foundationpose_torch.geometry.icosphere import icosphere
+    from foundationpose_torch.meshio import TriMesh
+    from foundationpose_torch.ops.rasterizer import _prepare, shade_brute
+    from foundationpose_torch.pipeline.mesh_tensors import make_mesh_tensors
+
+    verts, faces = icosphere(3, radius=0.1)
+    mt = make_mesh_tensors(TriMesh(vertices=verts, faces=faces), device=card)
+    P = torch.eye(4, device=card).repeat(4, 1, 1)
+    P[:, 2, 3] = torch.tensor([0.3, 0.5, 0.8, 3.0], device=card)
+    K = torch.tensor([[500.0, 0, 60.0], [0, 500.0, 50.0], [0, 0, 1.0]], device=card)
+    prep = _prepare(mt.pos, mt.faces, P, K, (100, 120), None, mt.vertex_color, None, mt.vnormals,
+                    True, False, None, True)
+    fk, ck = raster_cuda.kernel_boxes(prep)
+    fp, cp = raster_cuda._records(prep)
+    assert torch.equal(fk, fp) and torch.equal(ck, cp)
+    torch.cuda.synchronize()
+    before = raster_cuda.KERNEL.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = raster_cuda.raster_shade(prep, None, 0.8, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert raster_cuda.KERNEL.launches == before + 1
+    color, xyz, _, mask = shade_brute(prep, None, 0.8, 0.5)
+    assert torch.equal(out[3], mask) and mask.any()
+    assert (out[0] - color).abs().max().item() < 2e-4 and (out[1] - xyz).abs().max().item() < 2e-4
 
 
 def test_launch_counters_count_launches(card):
