@@ -22,7 +22,8 @@ with a nonzero exit and no result line):
 5. K3 and K4, the hash-grid backward's segment-adds, against their plain
    versions at the shapes of NerfCfg's defaults (per-row bound 1e-5 of
    the row's sum of |update|: atomics add in another order each run),
-   and their times (K3 in turns with its plain version and index_add_);
+   and their times (K3 in turns with its plain version and index_add_)
+   on a synthetic stream (random rows, a hot block, drop sentinels);
 6. small slices on the card against the CPU plain path: an f32 register
    + track, and 3 f32 NeRF train steps per grid layout from the same
    parameters and pinned draws;
@@ -45,7 +46,14 @@ with a nonzero exit and no result line):
    n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
    mesh held against the bench mesh (extents within 25%, median vertex
    distance < 5 mm, 1024^2 texture), register on the reconstruction,
-   then 20 "cuda"-layout steps; launch counts read around that run; then
+   then 20 "cuda"-layout steps; launch counts read around that run;
+9. K3 on the stream a "cuda"-layout step sends it: the (idx, upd) pair of
+   one step captured around the hash-grid backward, its share of distinct
+   rows (overall and within chunks of 1024-8192 consecutive updates), the
+   reductions K3 issues on it (`k3_reductions`) and the table sectors it
+   touches, K3 against its plain version on it, and K3, plain and
+   index_add_ timed in turns on it (the kernels line gives K3 these times,
+   the synthetic stream's beside them); then
    K1 against the brute path on the reconstruction at 32 register crops,
    its times (train step, extraction, bake, register, peak memory) and a
    traced pass of 10 train steps per layout (device busy time and idle
@@ -721,6 +729,105 @@ def k3_k4_phase():
     return res
 
 
+K3_CHUNKS = (1024, 2048, 4096, 8192)
+
+
+def distinct_rows(idx, table_size, chunk=None):
+    """Distinct in-range rows of an index stream, over the whole stream or
+    summed over chunks of `chunk` consecutive updates (what a kernel that
+    merges duplicates within each chunk adds globally). Returns (in-range
+    updates, distinct rows)."""
+    import torch
+
+    keep = (idx >= 0) & (idx < table_size)
+    rows = idx[keep].long()
+    if chunk is not None:
+        pos = torch.nonzero(keep).squeeze(1)
+        rows = (pos // chunk) * table_size + rows
+    return rows.numel(), torch.unique(rows).numel()
+
+
+def k3_reductions(idx, table_size, span):
+    """The reductions K3 (csrc/segment_add.cu) issues on a stream, for one
+    pass of channels: each warp walks a span of `span` updates 128 at a
+    time and keeps one run of a row per column of that step; an in-range
+    entry starts a run unless the entry 128 before it in its span has its
+    row."""
+    import torch
+
+    row = torch.where((idx >= 0) & (idx < table_size), idx.long(), -1)
+    prev = torch.full_like(row, -2)
+    prev[128:] = row[:-128]
+    first = torch.arange(row.numel(), device=row.device) % span < 128
+    return int(((first | (row != prev)) & (row >= 0)).sum())
+
+
+def k3_real_phase(cuda_runner):
+    """K3 on the stream a "cuda"-layout train step sends it: the (idx, upd)
+    pair of one step, captured by wrapping the name the hash-grid backward
+    calls; its distinct-row shares, the reductions K3 issues and the table
+    sectors they touch, K3 against its plain version, and K3, plain,
+    index_add_ and two yardsticks timed in turns on it."""
+    import torch
+
+    from foundationpose_torch.ops import hashgrid
+    from foundationpose_torch.ops.segment_add import segment_add_planes_plain
+    from foundationpose_torch.ops.segment_add_cuda import segment_add_planes_cuda
+
+    grabbed = []
+    orig = hashgrid.segment_add_planes
+
+    def grab(idx, upd, table_size):
+        grabbed.append((idx.clone(), upd.clone(), table_size))
+        return orig(idx, upd, table_size)
+
+    hashgrid.segment_add_planes = grab
+    try:
+        cuda_runner.train_step(torch.Generator(device=cuda_runner.device).manual_seed(2))
+    finally:
+        hashgrid.segment_add_planes = orig
+    if len(grabbed) != 1:
+        raise AssertionError(f"one cuda-layout step called segment_add_planes {len(grabbed)} times")
+    idx, upd, T = grabbed[0]
+    M = idx.numel()
+    if not (int(idx.min()) >= 0 and int(idx.max()) <= T):  # out-of-bounds points send T
+        raise AssertionError("the captured stream has indices outside [0, T]")
+    res = {}
+    n, d = distinct_rows(idx, T)
+    res["k3_real_updates"], res["k3_real_in_range"] = M, n
+    res["k3_real_distinct_share"] = d / n
+    for s in K3_CHUNKS:
+        res[f"k3_real_distinct_share_chunk{s}"] = distinct_rows(idx, T, s)[1] / n
+    for s in (1024, 4096):
+        res[f"k3_real_reductions_share_span{s}"] = k3_reductions(idx, T, s) / n
+    # 32-byte sectors of the (T, 2) f32 table that the step's rows touch
+    res["k3_real_table_sectors"] = distinct_rows(torch.where((idx >= 0) & (idx < T), idx // 4, -1), T)[1]
+    out = segment_add_planes_cuda(idx, upd, T)
+    want = segment_add_planes_plain(idx, upd, T)
+    res["k3_real_err"] = _row_check(f"K3 captured step M={M} C={upd.shape[0]} T={T}", out, want,
+                                    segment_add_planes_plain(idx, upd.abs(), T))
+    del out, want
+    # Yardsticks beside them: the wrapper's zeroing of the table alone, and
+    # one read of the stream (two sums).
+    res.update(_in_turns({
+        "k3_real_ms": lambda: segment_add_planes_cuda(idx, upd, T),
+        "k3_real_plain_ms": lambda: segment_add_planes_plain(idx, upd, T),
+        "k3_real_library_ms": lambda: torch.zeros((T + 1, upd.shape[0]), device=idx.device).index_add_(
+            0, idx, upd.T),
+        "k3_real_zero_ms": lambda: torch.zeros((T, upd.shape[0]), device=idx.device),
+        "k3_real_read_ms": lambda: (idx.sum(), upd.sum()),
+    }, reps=3))
+    res["k3_real_bound_ms"], res["k3_real_bound_by"] = bound(
+        _nbytes(idx, upd) + T * upd.shape[0] * 4, upd.numel(), "f32")
+    # The same with the traffic of adding into a zeroed table that does not
+    # fit the L2: each touched 32-byte sector read back and written again.
+    res["k3_real_sector_bound_ms"] = bound(
+        _nbytes(idx, upd) + T * upd.shape[0] * 4 + 2 * 32 * res["k3_real_table_sectors"],
+        upd.numel(), "f32")[0]
+    _print_times(res)
+    return res
+
+
 def _reference_views(mesh, hw, K, device):
     """RGB-D views of `mesh` rendered by the port from the 12 icosahedron
     vertices of the icosphere view sampler (its first 12 views) at 0.6 m;
@@ -1013,6 +1120,9 @@ def _profile(name, fn, n):
           f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities per call")
     ranked = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)
     ours = ("raster_kernel", "face_box_kernel", "mha_", "seg_add")  # the port's kernels, always
+    share = {f"{name}_{k}_device_ms": sum(us for kn, us in by_kernel.items() if tag in kn) / 1e3 / n
+             for k, tag in (("k1", "raster_kernel"), ("k2", "mha_"), ("k3", "seg_add_planes"),
+                            ("k4", "factored_seg_add"))}
     for rank, (k, us) in enumerate(ranked):
         if rank < 12 or any(o in k for o in ours):
             short = k.replace("void ", "").replace("at::native::", "").replace("(anonymous namespace)::", "")
@@ -1026,7 +1136,8 @@ def _profile(name, fn, n):
     return {f"{name}_ms_untraced_{n}": plain_ms,
             f"{name}_ms_cuda_traced": wall_ms,
             f"{name}_device_busy_ms": busy_ms,
-            f"{name}_device_idle_share": 1.0 - busy_ms / wall_ms}
+            f"{name}_device_idle_share": 1.0 - busy_ms / wall_ms,
+            **{k: v for k, v in share.items() if v > 0}}
 
 
 def main():
@@ -1043,6 +1154,7 @@ def main():
     t = phase("timing", 300, timing_phase, est, frame, n_hyp)
     del est
     mf_counts, t_mf, mf = phase("model-free path: reconstruct, register, cuda layout", 420, model_free_phase)
+    seg.update(phase("K3 on the stream of a captured cuda-layout step", 180, k3_real_phase, mf[1]))
     t.update(phase("model-free timing and step profile", 240, nerf_timing_phase, t_mf, *mf))
 
     def entry(name, source, replaces, launches, err, key, times):
@@ -1058,8 +1170,11 @@ def main():
               counts["raster"] + mf_counts["raster"], k1_err, "k1", t),
         entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
               counts["attention"] + mf_counts["attention"], k2_err, "k2", t),
-        entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",
-              mf_counts["k3"], seg["k3_err"], "k3", seg),
+        # K3's times are those of the captured step's stream; the synthetic
+        # stream's (random rows, sentinels) stand beside them.
+        dict(entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",
+                   mf_counts["k3"], max(seg["k3_err"], seg["k3_real_err"]), "k3_real", seg),
+             **{f"synthetic_{k}": seg[f"k3_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
         entry("K4 factored segment-add", "segment_add.cu",
               "foundationpose_tpu/ops/pallas_scatter.py:275", mf_counts["k4"], seg["k4_err"], "k4", seg),
     ]

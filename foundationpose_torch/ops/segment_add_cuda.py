@@ -2,12 +2,14 @@
 
 K3 replaces the Pallas TPU kernel foundationpose_tpu/ops/pallas_scatter.py
 ::_seg_add_kernel (reached from sorted_segment_add_planes), K4 replaces
-::_seg_add_factored_kernel (reached from factored_segment_add). On the
-card both are bound by f32 atomics into random table rows; neither sorts,
-and each warp adds its rows' columns from neighbouring lanes (see the
-header of csrc/segment_add.cu). Reached through
-ops/segment_add.py for CUDA tensors. The two kernels share one source and
-one library, and each wrapper counts its own launches.
+::_seg_add_factored_kernel (reached from factored_segment_add). Neither
+sorts. K3 merges in registers the runs of one row that consecutive points
+send (the same row recurs every 128 updates of the hash-grid backward's
+stream) and adds each run with one vector reduction; K4's warps add their
+rows' columns from neighbouring lanes (see the header of
+csrc/segment_add.cu). Reached through ops/segment_add.py for
+CUDA tensors. The two kernels share one source and one library, and each
+wrapper counts its own launches.
 """
 from __future__ import annotations
 
@@ -22,10 +24,23 @@ K4 = KernelLibrary("segment_add.cu")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+K3_SPAN = 1024  # updates a warp walks: the span within which K3 merges runs of a row
+
+
+def _k3_geometry(C: int) -> tuple[int, int]:
+    """K3's schedule for C channels: (S updates a warp walks, W channels a
+    pass). Each reduction adds W floats of one table row, aligned: W = 4
+    where 4 divides C, else 2 where 2 does, else 1; C / W passes read the
+    indices again. S is a multiple of the 128 updates a warp loads a step."""
+    if not 1 <= C <= 32:
+        raise ValueError(f"K3: C = {C} channels, 1 to 32 supported")
+    W = 4 if C % 4 == 0 else 2 if C % 2 == 0 else 1
+    return K3_SPAN, W
+
 
 def _declare(lib):
     lib.fp_segment_add_planes_launch.restype = ctypes.c_int
-    lib.fp_segment_add_planes_launch.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I, _P]
+    lib.fp_segment_add_planes_launch.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _P]
     lib.fp_factored_segment_add_launch.restype = ctypes.c_int
     lib.fp_factored_segment_add_launch.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P]
 
@@ -63,10 +78,11 @@ def segment_add_planes_cuda(idx: torch.Tensor, upd_planes: torch.Tensor, table_s
     out = torch.zeros((table_size, C), dtype=torch.float32, device=dev)
     if M == 0 or C == 0 or table_size == 0:
         return out
+    S, W = _k3_geometry(C)
     lib = K3.lib(_declare)
     K3.launches += 1
     status = lib.fp_segment_add_planes_launch(
-        idx.data_ptr(), upd.data_ptr(), out.data_ptr(), M, C, table_size,
+        idx.data_ptr(), upd.data_ptr(), out.data_ptr(), M, C, table_size, S, W,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status("fp_segment_add_planes_launch", status)

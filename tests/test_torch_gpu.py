@@ -125,22 +125,69 @@ def _row_bound(abs_sum):
     return 1e-5 * abs_sum + 1e-30
 
 
-def test_k3_matches_plain(card):
-    from foundationpose_torch.ops.segment_add import segment_add_planes_plain
+def _corner_stream(card):
+    """The (idx, upd) pair the "cuda"-layout hash-grid backward sends K3,
+    in its order: 64 rays x 256 samples through the unit cube, stratified
+    along each ray, at HashGridCfg's defaults (2M updates, 36M rows)."""
+    from foundationpose_torch.ops import hashgrid
 
+    g = torch.Generator(device=card).manual_seed(3)
+    o = torch.nn.functional.normalize(torch.randn((64, 3), generator=g, device=card), dim=1) * 1.4
+    d = torch.nn.functional.normalize(torch.rand((64, 3), generator=g, device=card) * 0.6 - 0.3 - o, dim=1)
+    t = torch.linspace(0.2, 2.6, 256, device=card) + torch.rand((64, 256), generator=g, device=card) * 0.01
+    x = (o[:, None] + d[:, None] * t[..., None]).reshape(-1, 3)
+    cfg = hashgrid.HashGridCfg()
+    T = cfg.level_tables()[3]
+    emb = torch.zeros((T, 2), device=card, requires_grad=True)
+    grabbed = []
+    orig = hashgrid.segment_add_planes
+    hashgrid.segment_add_planes = lambda *a: grabbed.append(a) or orig(*a)
+    try:
+        hashgrid.hashgrid_encode(emb, x, cfg).backward(torch.randn((len(x), 32), generator=g, device=card))
+    finally:
+        hashgrid.segment_add_planes = orig
+    (idx, upd, _T), = grabbed
+    return idx, upd, T
+
+
+def _random_stream(card):
     g = torch.Generator(device=card).manual_seed(0)
     M, T, C = 1 << 20, 50_000, 2
     idx = torch.randint(0, T, (M,), generator=g, device=card, dtype=torch.int32)
     idx[: M // 10] = 17  # heavy duplication
     idx[M // 10 : M // 10 + M // 100] = T  # the drop sentinel
-    upd = torch.randn((C, M), generator=g, device=card)
+    return idx, torch.randn((C, M), generator=g, device=card), T
+
+
+@pytest.mark.parametrize("stream", [_random_stream, _corner_stream], ids=["random", "corners"])
+def test_k3_matches_plain(card, stream):
+    from foundationpose_torch.ops.segment_add import segment_add_planes_plain
+
+    idx, upd, T = stream(card)
     before = segment_add_cuda.K3.launches
     out = segment_add_cuda.segment_add_planes_cuda(idx, upd, T)
     torch.cuda.synchronize()
     assert segment_add_cuda.K3.launches == before + 1
     want = segment_add_planes_plain(idx, upd, T)
     bound = _row_bound(segment_add_planes_plain(idx, upd.abs(), T))
-    assert ((out - want).abs() <= bound).all()
+    assert ((out - want).abs() <= bound).all() and want.abs().sum() > 0
+
+
+@pytest.mark.parametrize("C,M", [(1, 9_999), (3, 10_001), (8, 4_097), (32, 1_000)])
+def test_k3_other_widths_match_plain(card, C, M):
+    """Channel counts other than the backward's 2 (scalar and v4
+    reductions, several passes), M not a multiple of 4 (scalar loads),
+    negative and too large indices."""
+    from foundationpose_torch.ops.segment_add import segment_add_planes_plain
+
+    g = torch.Generator(device=card).manual_seed(C)
+    T = 3000
+    idx = torch.randint(-5, T + 5, (M,), generator=g, device=card, dtype=torch.int32)
+    idx[M // 3 : M // 2] = 11
+    upd = torch.randn((C, M), generator=g, device=card)
+    out = segment_add_cuda.segment_add_planes_cuda(idx, upd, T)
+    want = segment_add_planes_plain(idx, upd, T)
+    assert ((out - want).abs() <= _row_bound(segment_add_planes_plain(idx, upd.abs(), T))).all()
 
 
 def test_k4_matches_plain(card):

@@ -5,6 +5,10 @@ K3 and K4 run their plain versions here (CPU tensors); they are held
 against the Pallas kernels in interpret mode within the bounds of
 tests/test_hashgrid.py (the TPU kernels split each update into hi/lo
 bf16 halves) and against the JAX package's off-TPU fallbacks within 1e-5.
+K3's kernel cannot run here: a torch replay of its schedule (spans of
+consecutive updates, runs of one row summed per lane entry, one addition
+per run) is held against the Pallas kernel instead. chip_smoke.py is imported from the repository root
+for its distinct-row counter.
 """
 import numpy as np
 import jax
@@ -12,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import distinct_rows, k3_reductions
 from foundationpose_tpu.ops import hashgrid as jhg
 from foundationpose_tpu.ops import pallas_scatter as jps
 from foundationpose_torch.ops import hashgrid as thg
@@ -21,6 +26,7 @@ from foundationpose_torch.ops.segment_add import (
     segment_add_planes,
     segment_add_planes_plain,
 )
+from foundationpose_torch.ops.segment_add_cuda import _k3_geometry
 
 
 def _flat_case(kind, seed=3):
@@ -69,6 +75,147 @@ def test_k3_plain_vs_pallas_interpret_and_fallback(kind):
     keep = idx < TBL
     np.add.at(want, idx[keep], upd[:, keep].T)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _k3_replay(idx, upd, table_size):
+    """K3's schedule (csrc/segment_add.cu) in torch, its warps taken in
+    order: each warp walks a span of S consecutive updates 128 at a time,
+    lane l taking entries 4l .. 4l + 3 of each step; per entry a run of
+    one row is summed, and an entry with another row (or the span's end)
+    first adds the run into the output; rows outside [0, table_size) are
+    dropped; W channels a pass. Returns (out, the reductions issued)."""
+    C, M = upd.shape
+    S, W = _k3_geometry(C)
+    out = torch.zeros((table_size, C))
+    n_red = 0
+    for c0 in range(0, C, W):
+        for first in range(0, M, S):
+            end = min(first + S, M)
+            for col in range(128):
+                run_row, run = -1, torch.zeros(W)
+                for i in range(first + col, end, 128):
+                    row = int(idx[i]) if 0 <= int(idx[i]) < table_size else -1
+                    v = upd[c0 : c0 + W, i]
+                    if row == run_row:
+                        run = run + v
+                        continue
+                    if run_row >= 0:
+                        out[run_row, c0 : c0 + W] += run
+                        n_red += 1
+                    run_row, run = row, v
+                if run_row >= 0:
+                    out[run_row, c0 : c0 + W] += run
+                    n_red += 1
+    return out, n_red
+
+
+def _check_replay(idx, upd, table_size):
+    """The replay against the Pallas kernel in interpret mode, the JAX
+    fallback and a float64 numpy sum, per row of the sum of |update|:
+    within 2^-15 of it against the Pallas kernel (its hi/lo bf16 split
+    represents each update to 2^-16 relative: the hi half is the mantissa
+    cut to 8 bits, the lo half that rest rounded to bf16; the f32 sums run
+    in other orders), within 1e-5 against the others (f32 sums in another
+    order; the card's gate in chip_smoke.py). Returns (out, reductions)."""
+    got, n_red = _k3_replay(torch.as_tensor(idx), torch.as_tensor(upd), table_size)
+    got = got.numpy()
+    C = upd.shape[0]
+    keep = (idx >= 0) & (idx < table_size)
+    want = np.zeros((table_size, C))
+    abs_sum = np.zeros((table_size, C))
+    np.add.at(want, idx[keep], upd[:, keep].T.astype(np.float64))
+    np.add.at(abs_sum, idx[keep], np.abs(upd[:, keep].T.astype(np.float64)))
+    pallas = np.asarray(
+        jps._segment_add_flat(jnp.asarray(idx), jnp.asarray(upd), table_size, block=256, interpret=True)
+    )
+    fallback = np.asarray(jps.sorted_segment_add_planes(jnp.asarray(idx), jnp.asarray(upd), table_size))
+    assert got.shape == (table_size, C) and got.dtype == np.float32
+    assert (np.abs(got - pallas) <= 2.0**-15 * abs_sum + 1e-30).all()
+    assert (np.abs(got - fallback) <= 1e-5 * abs_sum + 1e-30).all()
+    assert (np.abs(got - want) <= 1e-5 * abs_sum + 1e-30).all()
+    return got, n_red
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+def test_k3_schedule_replay_matches_pallas(C):
+    """Two whole spans and a ragged one (M not a multiple of S), a run of
+    one row across the first span boundary, 1% drop sentinels."""
+    S = _k3_geometry(C)[0]
+    M, TBL = 2 * S + 123, 1500
+    rng = np.random.default_rng(C)
+    idx = rng.integers(0, TBL, M).astype(np.int32)
+    idx[S - 50 : S + 50] = 7
+    idx[rng.choice(M, M // 100, replace=False)] = TBL
+    upd = rng.normal(size=(C, M)).astype(np.float32)
+    got, _ = _check_replay(idx, upd, TBL)
+    np.testing.assert_allclose(got[7], upd[:, idx == 7].sum(1), rtol=1e-5)
+
+
+def _ray_points(n_rays, n_samples, seed):
+    """Samples ray by ray, as the NeRF runner sends them: rays from 1.4
+    units out through the unit cube's middle, stratified along each ray,
+    some points outside [-1, 1]^3."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n_rays, 3))
+    o = 1.4 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.3, 0.3, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.linspace(0.2, 2.6, n_samples)[None] + rng.uniform(0, 2.4 / n_samples, (n_rays, n_samples))
+    return (o[:, None] + d[:, None] * t[..., None]).reshape(-1, 3).astype(np.float32)
+
+
+def test_k3_schedule_replay_on_corner_stream(monkeypatch):
+    """The stream the "cuda"-layout backward sends K3, in its order (the
+    (point, level, corner) rows of the samples ray by ray; 16 levels, as
+    NerfCfg has), captured around the backward's call. Consecutive points
+    share cell corners, so an entry often has the row of the entry 128
+    updates before it: fewer reductions than updates, as chip_smoke.py
+    counts them."""
+    _, tcfg = _cfgs("cuda", 16, 10)
+    T = tcfg.level_tables()[3]
+    x = torch.as_tensor(_ray_points(4, 96, seed=7))
+    grabbed = []
+
+    def grab(idx, upd, table_size):
+        grabbed.append((idx.numpy().copy(), upd.numpy().copy(), table_size))
+        return segment_add_planes(idx, upd, table_size)
+
+    monkeypatch.setattr(thg, "segment_add_planes", grab)
+    emb = torch.zeros((T, 2), requires_grad=True)
+    g = torch.as_tensor(np.random.default_rng(8).normal(size=(len(x), tcfg.out_dim)).astype(np.float32))
+    thg.hashgrid_encode(emb, x, tcfg).backward(g)
+    (idx, upd, table_size), = grabbed
+    assert table_size == T and idx.shape == (len(x) * 16 * 8,) and (idx == T).any()
+    n, d = distinct_rows(torch.as_tensor(idx), T, _k3_geometry(2)[0])
+    got, n_red = _check_replay(idx, upd, T)
+    assert d < 0.5 * n and n_red < 0.5 * n
+    assert n_red == k3_reductions(torch.as_tensor(idx), T, _k3_geometry(2)[0])
+    np.testing.assert_allclose(got, emb.grad.numpy(), rtol=0, atol=1e-5 * np.abs(got).max())
+
+
+@pytest.mark.parametrize("C", range(1, 33))
+def test_k3_geometry(C):
+    S, W = _k3_geometry(C)
+    assert S >= 128 and S % 128 == 0  # whole 128-update steps of a warp
+    assert W in (1, 2, 4) and C % W == 0
+    assert W == max(w for w in (1, 2, 4) if C % w == 0)  # the widest aligned reduction
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 7, 1000, 4096])
+def test_distinct_rows_matches_numpy(chunk):
+    rng = np.random.default_rng(11)
+    T, M = 5000, 20_000
+    idx = rng.integers(0, T, M)
+    idx[rng.choice(M, 300, replace=False)] = T  # sentinels
+    idx[:40] = -3
+    idx[5000:9000] = rng.integers(0, 50, 4000)  # dense duplicates
+    keep = (idx >= 0) & (idx < T)
+    if chunk is None:
+        want = len(np.unique(idx[keep]))
+    else:
+        pos = np.nonzero(keep)[0]
+        want = len(np.unique(np.stack([pos // chunk, idx[keep]], axis=1), axis=0))
+    assert distinct_rows(torch.as_tensor(idx, dtype=torch.int32), T, chunk) == (int(keep.sum()), want)
 
 
 def test_k3_drops_out_of_range_indices():
