@@ -25,8 +25,11 @@ with a nonzero exit and no result line):
    and their times (K3 in turns with its plain version and index_add_)
    on a synthetic stream (random rows, a hot block, drop sentinels);
 6. small slices on the card against the CPU plain path: an f32 register
-   + track, and 3 f32 NeRF train steps per grid layout from the same
-   parameters and pinned draws;
+   + track, an f32 funneled register (prune after 1 iteration, keep 8:
+   the whole order equal, poses within 1e-4), the scorer tournament
+   (36 hypotheses in groups of 8, network scorer: the same rows win,
+   scores within 1e-4), and 3 f32 NeRF train steps per grid layout from
+   the same parameters and pinned draws;
 7. the model-based main path: the full-width estimator (base_width 64,
    160x160 crops, bf16, random weights from a seed, zeroed delta heads):
    register(iteration=5) over the 252-hypothesis grid and
@@ -42,12 +45,20 @@ with a nonzero exit and no result line):
    wall time, per-frame track time, stage times, and 3 traced registers
    (device busy time and idle share, the kernels and operators that own
    the device time);
-8. the model-free path: run_neural_object_field (NerfCfg defaults,
+8. estimator completion: reference-style checkpoints (`.pth` + config.yml
+   with BatchNorm and the 6d rotation, seeded full-width nets) loaded on
+   the card through cli.run_demo.build_estimator, bit-equal and with
+   their configs; save_weights -> .npz -> load_weights bit-equal; a .npz
+   embedding a reference config; then the funneled register
+   (EstimatorCfg.fast_register) at the main path's workload with K1 and
+   K2 counted around it, and its time beside the full register's, timed
+   in turns;
+9. the model-free path: run_neural_object_field (NerfCfg defaults,
    n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
    mesh held against the bench mesh (extents within 25%, median vertex
    distance < 5 mm, 1024^2 texture), register on the reconstruction,
    then 20 "cuda"-layout steps; launch counts read around that run;
-9. K3 on the stream a "cuda"-layout step sends it: the (idx, upd) pair of
+10. K3 on the stream a "cuda"-layout step sends it: the (idx, upd) pair of
    one step captured around the hash-grid backward, its share of distinct
    rows (overall and within chunks of 1024-8192 consecutive updates), the
    reductions K3 issues on it (`k3_reductions`) and the table sectors it
@@ -390,6 +401,7 @@ ATTN_SHAPES = [
     (252, 400, 512, 4), (1, 252, 512, 4), (1, 400, 512, 4),  # the main path's shapes
     (2, 20, 256, 2),
     (2, 1, 512, 4), (2, 513, 512, 4),  # L = 1; ragged L past 8 key tiles
+    (1, 64, 512, 4),  # the funneled register's scorer: 64 hypotheses
     (3, 9, 24, 3), (2, 77, 48, 2),  # dh = 8, 24: not multiples of 16
     (2, 50, 20, 4), (1, 130, 200, 2),  # dh = 5, 100: element loads, padded head
 ]
@@ -454,9 +466,12 @@ def _frame(mesh, t, hw, K, device):
     return rgb, out.depth[0].cpu().numpy().astype(np.float32), out.mask[0].cpu().numpy().astype(np.uint8)
 
 
-def small_slice_phase():
-    """f32 register + track at test width on the card vs the CPU plain
-    path: same winner, poses within 1e-4."""
+K_SMALL = np.array([[140.0, 0, 80.0], [0, 140.0, 60.0], [0, 0, 1.0]], np.float32)
+
+
+def _small_scene():
+    """The test-width scene: a colored box at (0.01, -0.02, 0.85), 160x120,
+    rendered on the CPU; its f32 estimator config (depth scorer)."""
     from foundationpose_torch.models import RefineNetCfg, ScoreNetCfg
     from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
     from foundationpose_torch.meshio import make_box
@@ -469,13 +484,102 @@ def small_slice_phase():
                          compute_dtype="float32"),
         min_n_views=4, inplane_step_deg=120.0,
     )
-    K = np.array([[140.0, 0, 80.0], [0, 140.0, 60.0], [0, 0, 1.0]], np.float32)
-    frame = _frame(box, (0.01, -0.02, 0.85), (120, 160), K, "cpu")
+    return box, cfg, _frame(box, (0.01, -0.02, 0.85), (120, 160), K_SMALL, "cpu")
+
+
+def funnel_slice(device):
+    """An f32 funneled register (prune after 1 of 2 iterations, keep 8) on
+    the small scene: (order, pose, refined poses, scores) as numpy."""
+    import dataclasses
+
+    box, cfg, frame = _small_scene()
+    cfg = dataclasses.replace(cfg, prune_after_iter=1, prune_keep=8)
+    est = _estimator(box, cfg, device, head_scale=0.05)
+    pose = est.register(K_SMALL, *frame, iteration=2)
+    return est.order.cpu().numpy(), pose, est.poses.cpu().numpy(), est.scores.cpu().numpy()
+
+
+def spread_scorer(net, a, b, scale=300.0, gain=100.0):
+    """Reshape a ScoreNetMultiPair in place so its logits on the crops
+    (a, b) spread far beyond rounding.
+
+    A random narrow ScoreNet gives every hypothesis nearly the same logit
+    (spread ~1e-6): its cross-hypothesis attention averages features that
+    differ by ~2%. Here that attention is made diagonal on these
+    hypotheses (query and key = scale x the feature minus the features'
+    mean, values centered the same way) and the last layer is scaled by
+    `gain`, so each logit follows its own hypothesis's features (gaps of
+    ~1e-3 and more)."""
+    import torch
+
+    from foundationpose_torch.models.networks import _tokens
+
+    with torch.no_grad():
+        tok = _tokens(net.encoderA, net.encoderAB, a, b, net.cfg.embed_dim, torch.float32)
+        mu = net.att(tok, torch.float32).mean(dim=1).mean(dim=0)
+        d = mu.shape[0]
+        w, bias = net.att_cross.in_proj_weight, net.att_cross.in_proj_bias
+        eye = torch.eye(d, dtype=w.dtype, device=w.device) * scale
+        w[:d], w[d:2 * d] = eye, eye
+        bias[:d], bias[d:2 * d] = -scale * mu, -scale * mu
+        bias[2 * d:] -= w[2 * d:] @ mu
+        net.linear.weight.mul_(gain)
+        net.linear.bias.mul_(gain)
+    return net
+
+
+def tournament_slice(devices, n=36, group_size=8):
+    """score_poses_tournament over n seeded hypotheses of the small scene,
+    network scorer (test width, f32, spread by `spread_scorer`), on each
+    device from the same weights: {device: scores as numpy}."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from foundationpose_torch.geometry.projection import depth_to_xyz_map
+    from foundationpose_torch.geometry.rotations import so3_exp_map
+    from foundationpose_torch.models import init_score_net
+    from foundationpose_torch.pipeline import make_crop_inputs, make_mesh_tensors
+    from foundationpose_torch.pipeline.scorer import score_poses_tournament
+
+    box, cfg, (rgb, depth, _mask) = _small_scene()
+    scfg = dataclasses.replace(cfg.scorer, mode="network")
+    rng = np.random.default_rng(4)
+    P = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    P[:, :3, :3] = so3_exp_map(torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32)).numpy()
+    P[:, :3, 3] = [0.012, -0.018, 0.86] + rng.normal(scale=0.01, size=(n, 3))
+    valid = np.ones(n, bool)
+    valid[5] = False
+    K = torch.as_tensor(K_SMALL)
+    rgb_t = torch.as_tensor(rgb).float() / 255.0
+    xyz = depth_to_xyz_map(torch.as_tensor(depth), K)
+    net = init_score_net(scfg.net, torch.Generator().manual_seed(1))
+    a, b, _ = make_crop_inputs(make_mesh_tensors(box), torch.as_tensor(P), K, rgb_t, xyz, 0.25,
+                               input_res=scfg.input_res, crop_ratio=scfg.crop_ratio,
+                               normalize_xyz=scfg.normalize_xyz, invalid_z=scfg.xyz_invalid_z)
+    spread_scorer(net, a, b)
+    out = {}
+    for dev in devices:
+        T = lambda x: x.to(dev)  # noqa: E731
+        out[dev] = score_poses_tournament(
+            copy.deepcopy(net).to(dev), scfg, make_mesh_tensors(box, device=dev),
+            T(torch.as_tensor(P)), T(K), T(rgb_t), T(xyz), 0.25,
+            valid=T(torch.as_tensor(valid)), group_size=group_size).cpu().numpy()
+    return out
+
+
+def small_slice_phase():
+    """f32 slices at test width on the card vs the CPU plain path: register
+    + track (same winner, poses within 1e-4), the funneled register (the
+    whole order equal, poses within 1e-4), the tournament (the same rows
+    win, scores within 1e-4)."""
+    box, cfg, frame = _small_scene()
     res = {}
     for dev in ("cpu", "cuda"):
         est = _estimator(box, cfg, dev, head_scale=0.05)
-        reg = est.register(K, *frame, iteration=2)
-        trk = est.track_one(frame[0], frame[1], K, iteration=2)
+        reg = est.register(K_SMALL, *frame, iteration=2)
+        trk = est.track_one(frame[0], frame[1], K_SMALL, iteration=2)
         res[dev] = (est.best_id, reg, trk)
     d_reg = float(np.abs(res["cpu"][1] - res["cuda"][1]).max())
     d_trk = float(np.abs(res["cpu"][2] - res["cuda"][2]).max())
@@ -483,6 +587,26 @@ def small_slice_phase():
           f"register max |d| {d_reg:.2e}, track max |d| {d_trk:.2e}")
     if res["cpu"][0] != res["cuda"][0] or not (d_reg < 1e-4 and d_trk < 1e-4):
         raise AssertionError("the slice on the card disagrees with the CPU plain path")
+
+    fc, fg = funnel_slice("cpu"), funnel_slice("cuda")
+    d_pose = float(np.abs(fc[1] - fg[1]).max())
+    d_all = float(np.abs(fc[2] - fg[2]).max())
+    print(f"  funneled slice: {len(fc[0])} hypotheses, order equal {bool((fc[0] == fg[0]).all())}, "
+          f"survivors {int((fc[3] > 1e4).sum())}, pose max |d| {d_pose:.2e}, "
+          f"all poses max |d| {d_all:.2e}")
+    if not ((fc[0] == fg[0]).all() and d_pose < 1e-4 and d_all < 1e-4):
+        raise AssertionError("the funneled register on the card disagrees with the CPU plain path")
+
+    tr = tournament_slice(("cpu", "cuda"))
+    fin = np.isfinite(tr["cpu"])
+    d_s = float(np.abs(tr["cpu"][fin] - tr["cuda"][fin]).max())
+    won = {dev: np.flatnonzero(s > 50).tolist() for dev, s in tr.items()}
+    print(f"  tournament (36 in groups of 8): final-round rows cpu {won['cpu']} cuda "
+          f"{won['cuda']}, winner {int(np.argmax(tr['cpu']))} / {int(np.argmax(tr['cuda']))}, "
+          f"scores max |d| {d_s:.2e}")
+    if not (won["cpu"] == won["cuda"] and np.argmax(tr["cpu"]) == np.argmax(tr["cuda"])
+            and (np.isfinite(tr["cuda"]) == fin).all() and d_s < 1e-4):
+        raise AssertionError("the tournament on the card disagrees with the CPU plain path")
 
 
 def main_path_phase():
@@ -639,6 +763,158 @@ def timing_phase(est, frame, n_hyp):
     t.update(_profile("register", lambda: est.register(K_FULL, *frame, iteration=5), 3))
     _print_times(t)
     return t
+
+
+def _reference_checkpoints(root):
+    """Reference-style run directories under `root` from seeded
+    full-width port nets: model_best.pth ({"model": {"module." + name}})
+    and config.yml, a non-default refiner (BatchNorm, 6d rotation, zfar
+    2 m). Returns {kind: (pth path, source state_dict, config dict)}."""
+    import os
+
+    import torch
+    import yaml
+
+    from foundationpose_torch.models import (
+        RefineNetCfg, ScoreNetCfg, init_refine_net, init_score_net)
+
+    common = {"c_in": 6, "use_BN": True, "normalize_xyz": True, "crop_ratio": 1.2,
+              "input_resize": [160, 160]}
+    nets = {
+        "refiner": (init_refine_net(RefineNetCfg(rot_rep="6d"), torch.Generator().manual_seed(5)),
+                    dict(common, rot_rep="6d", trans_rep="tracknet", zfar=2.0,
+                         trans_normalizer=[0.02, 0.02, 0.05], rot_normalizer=0.34906585)),
+        "scorer": (init_score_net(ScoreNetCfg(), torch.Generator().manual_seed(6)), dict(common)),
+    }
+    out = {}
+    g = torch.Generator().manual_seed(7)
+    for kind, (net, cfg_yaml) in nets.items():
+        with torch.no_grad():  # BatchNorm statistics that are not the defaults
+            for name, buf in net.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.copy_(torch.randn(buf.shape, generator=g) * 0.1)
+                elif name.endswith("running_var"):
+                    buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+        run = os.path.join(root, kind)
+        os.makedirs(run)
+        sd = net.state_dict()
+        torch.save({"model": {f"module.{k}": v for k, v in sd.items()}},
+                   os.path.join(run, "model_best.pth"))
+        with open(os.path.join(run, "config.yml"), "w") as f:
+            yaml.safe_dump(cfg_yaml, f)
+        out[kind] = (os.path.join(run, "model_best.pth"), sd, cfg_yaml)
+    return out
+
+
+def _bit_equal(name, net, sd):
+    import torch
+
+    got = net.state_dict()
+    same = set(got) == set(sd) and all(torch.equal(got[k].cpu(), v.cpu()) for k, v in sd.items())
+    print(f"  {name}: {len(sd)} tensors, bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: the weights on the card differ from their source")
+
+
+def checkpoint_check(mesh, device):
+    """Reference-style checkpoints through the user entry points on
+    `device`: a .pth + config.yml per net via cli.run_demo.build_estimator
+    (configs read back, weights bit-equal), save_weights -> .npz ->
+    build_estimator (bit-equal, same configs), and a .npz embedding the
+    reference config via load_weights."""
+    import argparse
+    import os
+    import tempfile
+
+    from foundationpose_torch.cli.run_demo import build_estimator
+    from foundationpose_torch.models.convert import params_to_jax
+    from foundationpose_torch.utils.checkpoint import save_params
+
+    def build(refiner, scorer):
+        return build_estimator(mesh, argparse.Namespace(
+            refiner_ckpt=refiner, scorer_ckpt=scorer, fast_register=False, device=device))
+
+    with tempfile.TemporaryDirectory() as root:
+        ck = _reference_checkpoints(root)
+        loaded = build(ck["refiner"][0], ck["scorer"][0])
+        c = loaded.cfg
+        print(f"  .pth + config.yml via build_estimator: refiner rot_rep {c.refiner.rot_rep} "
+              f"(net {c.refiner.net.rot_rep}), use_bn {c.refiner.net.use_bn}/{c.scorer.net.use_bn}, "
+              f"zfar {c.zfar}, scorer mode {c.scorer.mode}, device {loaded.device}")
+        if not (c.refiner.rot_rep == c.refiner.net.rot_rep == "6d" and c.refiner.net.use_bn
+                and c.scorer.net.use_bn and c.zfar == 2.0 and c.scorer.mode == "network"
+                and loaded.has_refiner and loaded.device.type == device):
+            raise AssertionError("the reference configs did not reach the estimator")
+        _bit_equal(".pth refiner", loaded.refiner, ck["refiner"][1])
+        _bit_equal(".pth scorer", loaded.scorer, ck["scorer"][1])
+
+        rp, sp = os.path.join(root, "refiner.npz"), os.path.join(root, "scorer.npz")
+        loaded.save_weights(rp, sp)
+        again = build(rp, sp)
+        if (again.cfg.refiner, again.cfg.scorer) != (c.refiner, c.scorer):
+            raise AssertionError("save_weights -> load_weights changed the configuration")
+        _bit_equal("save_weights .npz refiner", again.refiner, ck["refiner"][1])
+        _bit_equal("save_weights .npz scorer", again.scorer, ck["scorer"][1])
+
+        conv = os.path.join(root, "converted_refiner.npz")
+        save_params(conv, params_to_jax(ck["refiner"][1]),
+                    meta={"reference_config": ck["refiner"][2]})
+        again.load_weights(refiner_path=conv)
+        if again.cfg.refiner != c.refiner or again.cfg.zfar != 2.0:
+            raise AssertionError("the embedded reference config did not load")
+        _bit_equal("reference_config .npz refiner", again.refiner, ck["refiner"][1])
+
+
+def completion_phase(est, frame):
+    """Checkpoints through the user entry points on the card, then the
+    funneled register at the main path's workload: its gates, its K1/K2
+    launches and its time beside the full register's (`est`), in turns."""
+    import torch
+
+    from foundationpose_torch.ops import attention_cuda, raster_cuda
+
+    mesh = est.mesh_ori
+    checkpoint_check(mesh, "cuda")
+    funnel = _estimator(mesh, est.cfg.fast_register(), "cuda")
+    n_hyp = int(funnel.hyp_valid.sum())
+    torch.cuda.synchronize()
+    raster_cuda.KERNEL.launches = 0
+    attention_cuda.KERNEL.launches = 0
+    pose = funnel.register(K_FULL, *frame, iteration=5)
+    torch.cuda.synchronize()
+    counts = {"raster": raster_cuda.KERNEL.launches, "attention": attention_cuda.KERNEL.launches}
+    order = funnel.order.cpu().numpy()
+    scores = funnel.scores.cpu().numpy()
+    print(f"  funneled register: pose t = {pose[:3, 3]}, best hypothesis {funnel.best_id}, "
+          f"launches raster {counts['raster']} attention {counts['attention']} "
+          f"(full register: 6 and 12)")
+    print(f"  funneled scores: first 64 in [{scores[63]:.10g}, {scores[0]:.10g}], "
+          f"65th {scores[64]:.6g}, distinct order entries {len(set(order.tolist()))}")
+    if not (pose.shape == (4, 4) and np.isfinite(pose).all() and abs(pose[2, 3] - 0.9) < 0.2):
+        raise AssertionError(f"funneled register pose out of bounds:\n{pose}")
+    if not ((scores[:64] > 1e4).all() and (np.diff(scores[:64]) <= 0).all()
+            and len(set(order.tolist())) == len(order) == len(funnel.hyp_valid)):
+        raise AssertionError("the funneled register's order or scores are malformed")
+    if (counts["raster"], counts["attention"]) != (7, 12):
+        raise AssertionError(f"the funneled register launched {counts}, not K1 7 and K2 12")
+
+    regs = {"full": est, "funneled": funnel}
+    times = {k: [] for k in regs}
+    for e in regs.values():  # warm-up
+        e.register(K_FULL, *frame, iteration=5)
+    for name in ("full", "funneled", "funneled", "full"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            regs[name].register(K_FULL, *frame, iteration=5)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    t = {"register_ms_in_turns_median6": float(np.median(times["full"])),
+         "register_funneled_ms": float(np.median(times["funneled"])),
+         "register_funneled_hyp_per_s": n_hyp / float(np.median(times["funneled"])) * 1e3,
+         "funneled_k1_launches": counts["raster"], "funneled_k2_launches": counts["attention"]}
+    t.update(_profile("register_funneled", lambda: funnel.register(K_FULL, *frame, iteration=5), 3))
+    _print_times(t)
+    return counts, t
 
 
 def _print_times(t):
@@ -1152,6 +1428,9 @@ def main():
     phase("small NeRF slice: card vs CPU plain path", 180, small_nerf_phase)
     counts, est, frame, n_hyp = phase("main path: register + 3 tracked frames", 300, main_path_phase)
     t = phase("timing", 300, timing_phase, est, frame, n_hyp)
+    fn_counts, t_fn = phase("estimator completion: checkpoints, funneled register", 240,
+                            completion_phase, est, frame)
+    t.update(t_fn)
     del est
     mf_counts, t_mf, mf = phase("model-free path: reconstruct, register, cuda layout", 420, model_free_phase)
     seg.update(phase("K3 on the stream of a captured cuda-layout step", 180, k3_real_phase, mf[1]))
@@ -1167,9 +1446,9 @@ def main():
     k1_err = max(k1_err, t["k1_err_timed_shape"], t["k1_err_recon"])
     kernels = [
         entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
-              counts["raster"] + mf_counts["raster"], k1_err, "k1", t),
+              counts["raster"] + fn_counts["raster"] + mf_counts["raster"], k1_err, "k1", t),
         entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
-              counts["attention"] + mf_counts["attention"], k2_err, "k2", t),
+              counts["attention"] + fn_counts["attention"] + mf_counts["attention"], k2_err, "k2", t),
         # K3's times are those of the captured step's stream; the synthetic
         # stream's (random rows, sentinels) stand beside them.
         dict(entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",

@@ -1,0 +1,19 @@
+"""YCB-Video benchmark entry point (reference: run_ycb_video.py).
+
+Thin alias over the unified BOP driver (cli/run_bop.py) with the dataset
+pinned to 'ycbv'.
+"""
+import sys
+
+from .run_bop import main as _main
+
+
+def main(argv=None):
+    args = list(argv) if argv is not None else sys.argv[1:]
+    if not any(a.startswith("--dataset") for a in args):
+        args = ["--dataset", "ycbv"] + args
+    return _main(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -23,3 +23,4 @@ from .projection import (
 )
 from .icosphere import icosphere, sample_views_icosphere
 from .clustering import cluster_poses, cluster_poses_numpy
+from .symmetry import symmetry_tfs_from_info

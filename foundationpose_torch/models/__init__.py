@@ -7,4 +7,19 @@ from .networks import (
     init_refine_net,
     init_score_net,
 )
-from .convert import params_from_jax, load_npz_params, nerf_params_from_jax
+from .convert import (
+    params_from_jax,
+    params_to_jax,
+    load_npz_params,
+    load_torch_state_dict,
+    detect_use_bn,
+    nerf_params_from_jax,
+)
+from .loading import load_estimator_checkpoint
+from .reference_config import (
+    apply_reference_defaults,
+    load_reference_yaml,
+    refiner_cfg_from_reference,
+    scorer_cfg_from_reference,
+    zfar_from_reference,
+)

@@ -1,29 +1,27 @@
-"""JAX param trees and .npz checkpoints -> state_dicts of the port's nets
-and of the neural object field (`nerf_params_from_jax`).
+"""Checkpoints of the nets: JAX param trees, reference torch state dicts
+and .npz files, to and from the port's state_dicts; and the neural
+object field's params (`nerf_params_from_jax`).
 
-The inverse of foundationpose_tpu/models/convert.py: a JAX param tree
-(nested dicts of numpy arrays, as the JAX package's init_* functions and
-`.npz` checkpoints hold them) becomes a state_dict with the reference
-torch names. Layout changes:
-  conv kernel (kh, kw, I, O)  -> weight (O, I, kh, kw)
-  linear kernel (I, O)        -> weight (O, I)
-  BN scale/bias/mean/var      -> weight/bias/running_mean/running_var
+Port of foundationpose_tpu/models/convert.py, both ways. The port's nets
+carry the reference torch names (learning/models/*.py), so a reference
+`.pth` state dict loads into them as it is (`load_torch_state_dict`); a
+JAX param tree (nested dicts of numpy arrays, as the JAX package's
+init_* functions and `.npz` checkpoints hold them) maps onto the same
+names (`params_from_jax`) and back (`params_to_jax`). Layouts:
+  conv kernel (kh, kw, I, O)  <-> weight (O, I, kh, kw)
+  linear kernel (I, O)        <-> weight (O, I)
+  BN scale/bias/mean/var      <-> weight/bias/running_mean/running_var
 """
 from __future__ import annotations
-
-import json
 
 import numpy as np
 import torch
 
+from ..utils.checkpoint import load_params_meta
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
-
-
-def _conv(sd, prefix, p):
-    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
-    sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _linear(sd, prefix, p):
@@ -31,93 +29,128 @@ def _linear(sd, prefix, p):
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _bn(sd, prefix, p):
-    sd[f"{prefix}.weight"] = _t(p["scale"])
-    sd[f"{prefix}.bias"] = _t(p["bias"])
-    sd[f"{prefix}.running_mean"] = _t(p["mean"])
-    sd[f"{prefix}.running_var"] = _t(p["var"])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+_BN = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var"))
+# (JAX layout -> torch layout, torch layout -> JAX layout)
+_LAYOUTS = {
+    "conv": (lambda a: np.transpose(a, (3, 2, 0, 1)), lambda a: np.transpose(a, (2, 3, 1, 0))),
+    "linear": (np.transpose, np.transpose),
+    "vec": (lambda a: a, lambda a: a),
+}
 
 
-def _conv_bn(sd, prefix, p, use_bn):
-    _conv(sd, f"{prefix}.net.0", p["conv"])
-    if use_bn:
-        _bn(sd, f"{prefix}.net.1", p["bn"])
+def _param_map(scorer: bool, use_bn: bool):
+    """(JAX tree path, state_dict name, layout) of every parameter of a
+    RefineNet (scorer False) or ScoreNetMultiPair."""
+    out = []
 
+    def dense(jp, tp, layout):
+        out.append((jp + ("kernel",), f"{tp}.weight", layout))
+        out.append((jp + ("bias",), f"{tp}.bias", "vec"))
 
-def _res(sd, prefix, p, use_bn):
-    _conv(sd, f"{prefix}.conv1", p["conv1"])
-    _conv(sd, f"{prefix}.conv2", p["conv2"])
-    if use_bn:
-        _bn(sd, f"{prefix}.bn1", p["bn1"])
-        _bn(sd, f"{prefix}.bn2", p["bn2"])
+    def bn(jp, tp):
+        out.extend((jp + (j,), f"{tp}.{t}", "vec") for j, t in _BN)
 
+    def conv_bn(jp, tp):
+        dense(jp + ("conv",), f"{tp}.net.0", "conv")
+        if use_bn:
+            bn(jp + ("bn",), f"{tp}.net.1")
 
-def _trunks(sd, name_a, name_ab, tree, use_bn):
-    a, ab = tree[name_a], tree[name_ab]
-    _conv_bn(sd, f"{name_a}.0", a["0"], use_bn)
-    _conv_bn(sd, f"{name_a}.1", a["1"], use_bn)
-    _res(sd, f"{name_a}.2", a["2"], use_bn)
-    _res(sd, f"{name_a}.3", a["3"], use_bn)
-    for i in ("0", "1", "3", "4"):
-        _res(sd, f"{name_ab}.{i}", ab[i], use_bn)
-    _conv_bn(sd, f"{name_ab}.2", ab["2"], use_bn)
+    def res(jp, tp):
+        for i in ("1", "2"):
+            dense(jp + (f"conv{i}",), f"{tp}.conv{i}", "conv")
+        if use_bn:
+            for i in ("1", "2"):
+                bn(jp + (f"bn{i}",), f"{tp}.bn{i}")
 
+    def mha(jp, tp):
+        out.append((jp + ("in_proj", "kernel"), f"{tp}.in_proj_weight", "linear"))
+        out.append((jp + ("in_proj", "bias"), f"{tp}.in_proj_bias", "vec"))
+        dense(jp + ("out_proj",), f"{tp}.out_proj", "linear")
 
-def _mha(sd, prefix, p):
-    sd[f"{prefix}.in_proj_weight"] = _t(np.transpose(np.asarray(p["in_proj"]["kernel"])))
-    sd[f"{prefix}.in_proj_bias"] = _t(p["in_proj"]["bias"])
-    _linear(sd, f"{prefix}.out_proj", p["out_proj"])
-
-
-def _encoder_layer(sd, prefix, p):
-    _mha(sd, f"{prefix}.self_attn", p["self_attn"])
-    _linear(sd, f"{prefix}.linear1", p["linear1"])
-    _linear(sd, f"{prefix}.linear2", p["linear2"])
-    for n in ("norm1", "norm2"):
-        sd[f"{prefix}.{n}.weight"] = _t(p[n]["scale"])
-        sd[f"{prefix}.{n}.bias"] = _t(p[n]["bias"])
+    a, ab = ("encoderA", "encoderAB") if scorer else ("encodeA", "encodeAB")
+    for i, block in enumerate((conv_bn, conv_bn, res, res)):
+        block((a, str(i)), f"{a}.{i}")
+    for i, block in enumerate((res, res, conv_bn, res, res)):
+        block((ab, str(i)), f"{ab}.{i}")
+    if scorer:
+        mha(("att",), "att")
+        mha(("att_cross",), "att_cross")
+        dense(("linear",), "linear", "linear")
+        return out
+    for head in ("trans_head", "rot_head"):
+        layer = (head, "0")
+        mha(layer + ("self_attn",), f"{head}.0.self_attn")
+        for lin in ("linear1", "linear2"):
+            dense(layer + (lin,), f"{head}.0.{lin}", "linear")
+        for norm in ("norm1", "norm2"):
+            out.append((layer + (norm, "scale"), f"{head}.0.{norm}.weight", "vec"))
+            out.append((layer + (norm, "bias"), f"{head}.0.{norm}.bias", "vec"))
+        dense((head, "1"), f"{head}.1", "linear")
+    return out
 
 
 def params_from_jax(tree: dict, cfg) -> dict:
     """JAX RefineNet or ScoreNet param tree -> state_dict of the port's
     RefineNet / ScoreNetMultiPair; `cfg` is the net config (use_bn)."""
-    sd: dict = {}
-    if "encodeA" in tree:
-        _trunks(sd, "encodeA", "encodeAB", tree, cfg.use_bn)
-        for head in ("trans_head", "rot_head"):
-            _encoder_layer(sd, f"{head}.0", tree[head]["0"])
-            _linear(sd, f"{head}.1", tree[head]["1"])
-    elif "encoderA" in tree:
-        _trunks(sd, "encoderA", "encoderAB", tree, cfg.use_bn)
-        _mha(sd, "att", tree["att"])
-        _mha(sd, "att_cross", tree["att_cross"])
-        _linear(sd, "linear", tree["linear"])
-    else:
+    if "encodeA" not in tree and "encoderA" not in tree:
         raise ValueError("not a RefineNet or ScoreNet param tree")
+    sd: dict = {}
+    for path, name, layout in _param_map("encoderA" in tree, cfg.use_bn):
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        sd[name] = _t(_LAYOUTS[layout][0](np.asarray(leaf)))
+        if name.endswith(".running_var"):
+            sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
 
 
-_META_KEY = "__meta_json__"
+def params_to_jax(sd: dict) -> dict:
+    """The inverse of params_from_jax: a RefineNet / ScoreNetMultiPair
+    state_dict -> the JAX package's param tree (numpy f32), as its
+    FoundationPose.save_weights writes it."""
+    tree: dict = {}
+    for path, name, layout in _param_map("encoderA.0.net.0.weight" in sd, detect_use_bn(sd)):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        a = sd[name].detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](a))
+    return tree
+
+
+def detect_use_bn(sd: dict) -> bool:
+    return any("running_mean" in k for k in sd)
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A reference `.pth` checkpoint -> {name: CPU tensor}.
+
+    Tolerates the wrappers seen in the wild: a {'model': ...} or
+    {'state_dict': ...} envelope (predict_pose_refine.py:139-140) and
+    DataParallel / DistributedDataParallel 'module.' key prefixes.
+    Non-tensor entries are dropped, and so is the reference's
+    positional-embedding table (`pos_embed.pe`, a constant sinusoid the
+    port computes for its token count). The file is unpickled in full:
+    load only checkpoints you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for wrapper in ("model", "state_dict"):
+        if wrapper in ckpt and isinstance(ckpt[wrapper], dict):
+            ckpt = ckpt[wrapper]
+            break
+    out = {}
+    for k, v in ckpt.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if isinstance(v, torch.Tensor) and k != "pos_embed.pe":
+            out[k] = v.detach().cpu()
+    return out
 
 
 def load_npz_params(path: str):
-    """Read a param .npz written by the JAX package's save_params.
-
-    Keys are '/'-joined tree paths. Returns (tree, meta dict or None)."""
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    meta = None
-    if _META_KEY in flat:
-        meta = json.loads(flat.pop(_META_KEY).tobytes().decode("utf-8"))
-    tree: dict = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        d = tree
-        for p in parts[:-1]:
-            d = d.setdefault(p, {})
-        d[parts[-1]] = val
-    return tree, meta
+    """Read a param .npz written by either package's save_params.
+    Returns (tree, meta dict or None)."""
+    return load_params_meta(path)
 
 
 def _nerf_sd(tree) -> dict:

@@ -28,7 +28,6 @@ from ..geometry.clustering import cluster_poses
 from ..geometry.icosphere import sample_views_icosphere
 from ..geometry.projection import guess_translation
 from ..meshio import TriMesh, compute_mesh_diameter, voxel_downsample
-from ..models.convert import load_npz_params, params_from_jax
 from ..models.networks import (
     RefineNet,
     ScoreNetMultiPair,
@@ -82,26 +81,6 @@ def _as_module(params, cls, net_cfg):
     raise TypeError(f"expected an nn.Module or a state_dict, got {type(params)}")
 
 
-def _cfg_from_meta(d: dict, base):
-    """RefinerCfg/ScorerCfg from the JSON `pipeline_cfg` the JAX package
-    embeds in checkpoints; unknown fields are ignored, lists -> tuples."""
-    d = dict(d)
-    net_d = d.pop("net", None)
-    raster_d = d.pop("raster", None)
-
-    def coerce(cfg, upd):
-        known = {f.name for f in dataclasses.fields(cfg)}
-        upd = {k: tuple(v) if isinstance(v, list) else v for k, v in upd.items() if k in known}
-        return dataclasses.replace(cfg, **upd)
-
-    out = coerce(base, d)
-    if net_d is not None:
-        out = dataclasses.replace(out, net=coerce(base.net, net_d))
-    if raster_d is not None:
-        out = dataclasses.replace(out, raster=coerce(base.raster, raster_d))
-    return out
-
-
 class FoundationPose:
     def __init__(
         self,
@@ -119,6 +98,7 @@ class FoundationPose:
         every frame is computed; asking for CUDA without a card raises."""
         self.device = default_device(device)
         self.cfg = cfg or EstimatorCfg()
+        self.gt_pose = None
         self.pose_last: torch.Tensor | None = None
         # Weights-awareness: a randomly initialized refiner would apply
         # garbage deltas, so refinement is skipped unless real weights
@@ -210,36 +190,52 @@ class FoundationPose:
         self.rot_grid = torch.as_tensor(rot_grid, dtype=torch.float32, device=self.device)
         logger.info("rotation grid: %d (+%d pad)", n, pad)
 
+    def save_weights(self, refiner_path: str | None = None, scorer_path: str | None = None):
+        """Save the refiner / scorer as `.npz` param trees in the JAX
+        package's layout, with the live pipeline config embedded, so
+        load_weights (either package's) rebuilds the net width, crop
+        resolution, delta parameterization and scorer mode."""
+        from ..models.convert import params_to_jax
+        from ..utils.checkpoint import save_params
+
+        for path, kind in ((refiner_path, "refiner"), (scorer_path, "scorer")):
+            if path:
+                save_params(path, params_to_jax(getattr(self, kind).state_dict()),
+                            meta={"pipeline_cfg": dataclasses.asdict(getattr(self.cfg, kind))})
+
     def load_weights(self, refiner_path: str | None = None, scorer_path: str | None = None):
-        """Load `.npz` param files written by the JAX package
-        (FoundationPose.save_weights), with the pipeline config they
-        embed."""
+        """Load checkpoints with their configs (models/loading.py): a
+        reference `.pth` (with its sidecar config.yml if there is one),
+        a converted `.npz` that embeds the reference config, a
+        save_weights `.npz`, or a bare `.npz`. The refiner checkpoint's
+        reference config also sets EstimatorCfg.zfar (3 m by default,
+        predict_pose_refine.py:124-129)."""
+        from ..models.loading import load_estimator_checkpoint
+
         for path, kind in ((refiner_path, "refiner"), (scorer_path, "scorer")):
             if not path:
                 continue
-            if not path.endswith(".npz"):
-                raise ValueError(f"{path}: only .npz param files are supported")
-            tree, meta = load_npz_params(path)
-            base = getattr(self.cfg, kind)
-            pc = (meta or {}).get("pipeline_cfg")
-            if pc is not None:
-                sub = _cfg_from_meta(pc, base)
-            elif (meta or {}).get("reference_config") is not None:
-                raise NotImplementedError(
-                    f"{path}: converted reference checkpoints are not supported yet"
-                )
-            else:
-                trunk = tree.get("encodeA") or tree.get("encoderA") or {}
-                use_bn = "bn" in trunk.get("0", {})
-                sub = dataclasses.replace(base, net=dataclasses.replace(base.net, use_bn=use_bn))
-            if kind == "scorer":
-                sub = dataclasses.replace(sub, mode="network")  # weights imply network
+            sd, sub, zfar = load_estimator_checkpoint(path, kind, base=getattr(self.cfg, kind))
             cls = RefineNet if kind == "refiner" else ScoreNetMultiPair
-            net = _as_module(params_from_jax(tree, sub.net), cls, sub.net)
-            setattr(self, kind, net.to(self.device).eval())
+            setattr(self, kind, _as_module(sd, cls, sub.net).to(self.device).eval())
             self.cfg = dataclasses.replace(self.cfg, **{kind: sub})
             if kind == "refiner":
                 self.has_refiner = True
+                if zfar is not None:
+                    self.cfg = dataclasses.replace(self.cfg, zfar=zfar)
+
+    def compute_add_err_to_gt_pose(self, poses) -> np.ndarray:
+        """ADD of each pose in the centered-mesh frame against
+        self.gt_pose (the reference stubs this to -1, estimater.py:243-247;
+        so does this without a gt pose)."""
+        if self.gt_pose is None:
+            return -np.ones(len(poses))
+        pts = self.pts.cpu().numpy()
+        gt = np.asarray(self.gt_pose) @ np.linalg.inv(self.get_tf_to_centered_mesh())
+        poses = np.asarray(poses)
+        gt_pts = pts @ gt[:3, :3].T + gt[:3, 3]
+        pred = np.einsum("nij,pj->npi", poses[:, :3, :3], pts) + poses[:, None, :3, 3]
+        return np.linalg.norm(pred - gt_pts[None], axis=-1).mean(axis=-1)
 
     # --------------------------------------------------------- inference
 

@@ -1,11 +1,13 @@
 """The register and track bodies: everything a frame computes on device.
 
-Port of foundationpose_tpu/pipeline/graph.py (`_register_body` without
-the prune funnel, `_track_body`, `device_guess_translation`). PyTorch
+Port of foundationpose_tpu/pipeline/graph.py (`_register_body` with
+its prune funnel, `_track_body`, `device_guess_translation`). PyTorch
 runs eagerly, so each body is a plain function of tensors; no step
 copies a value to the host.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -91,22 +93,75 @@ def register_body(
     iterations: int,
 ):
     """Full registration. Returns (order, refined_sorted, scores_sorted,
-    center, n_valid)."""
+    center, n_valid).
+
+    With cfg.prune_after_iter set (and fewer survivors than hypotheses,
+    more iterations than the prune point), the register is funneled:
+    every hypothesis is refined `prune_after_iter` times and ranked by
+    the depth score; the top `prune_keep` are refined for the remaining
+    iterations and scored by the configured scorer."""
     depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
     center, n_valid = device_guess_translation(depth, mask, K)
     poses = rot_grid.clone()
     poses[:, :3, 3] = center[None]
-    refined = refine_poses(
-        refiner_net, cfg.refiner, mesh, poses, K, rgb, xyz_map, mesh_diameter,
-        iterations=iterations,
+    n_hyp = rot_grid.shape[0]
+    prune = (
+        cfg.prune_after_iter is not None
+        and iterations > cfg.prune_after_iter
+        and cfg.prune_keep < n_hyp
     )
-    scores = score_poses(
-        scorer_net, cfg.scorer, mesh, refined, K, rgb, xyz_map, mesh_diameter,
-        valid=hyp_valid,
-    )
-    # stable, as jnp.argsort: padded hypotheses all hold -inf
-    order = torch.argsort(-scores, stable=True)
+
+    def refine(p, n):
+        return refine_poses(refiner_net, cfg.refiner, mesh, p, K, rgb, xyz_map,
+                            mesh_diameter, iterations=n)
+
+    def score(scfg, p, valid):
+        return score_poses(scorer_net, scfg, mesh, p, K, rgb, xyz_map, mesh_diameter,
+                           valid=valid)
+
+    if not prune:
+        refined = refine(poses, iterations)
+        scores = score(cfg.scorer, refined, hyp_valid)
+        # stable, as jnp.argsort: padded hypotheses all hold -inf
+        order = torch.argsort(-scores, stable=True)
+        return order, refined[order], scores[order], center, n_valid
+
+    refined1 = refine(poses, cfg.prune_after_iter)
+    pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1, hyp_valid)
+    keep_idx = funnel_keep(pre, cfg.prune_keep)
+    sub_refined = refine(refined1[keep_idx], iterations - cfg.prune_after_iter)
+    sub_scores = score(cfg.scorer, sub_refined, hyp_valid[keep_idx])
+    refined = refined1.index_copy(0, keep_idx, sub_refined)
+    order, scores = funnel_order(pre, sub_scores, keep_idx, hyp_valid)
     return order, refined[order], scores[order], center, n_valid
+
+
+def funnel_keep(pre: torch.Tensor, keep: int) -> torch.Tensor:
+    """The `keep` survivors: highest depth score first, the lower index
+    first on a tie, as jax.lax.top_k orders them (torch.topk gives no tie
+    order on CUDA)."""
+    return torch.argsort(-pre, stable=True)[:keep]
+
+
+def funnel_order(pre, sub_scores, keep_idx, hyp_valid):
+    """(order (N,), scores (N,)) of a funneled register.
+
+    Survivors come first, by their final score (-inf where invalid);
+    then the pruned rows, valid ones by descending depth score, invalid
+    ones under the finite key -3e38 so they still sort above the
+    survivors' -inf keys and the first N - keep entries are exactly the
+    pruned rows. Reported survivor scores carry +1e5 so callers see them
+    above every pruned row; the order is computed here, never through
+    that offset (+1e5 rounds f32 logits to ~0.008)."""
+    n_keep = keep_idx.shape[0]
+    neg_inf = torch.tensor(float("-inf"), dtype=pre.dtype, device=pre.device)
+    scores = pre.index_copy(0, keep_idx, sub_scores + 1e5)
+    surv_key = torch.where(hyp_valid[keep_idx], sub_scores, neg_inf)
+    surv_ids = keep_idx[torch.argsort(-surv_key, stable=True)]
+    rest_key = torch.where(hyp_valid, pre, torch.full_like(pre, -3e38))
+    rest_key = rest_key.index_fill(0, keep_idx, float("-inf"))
+    rest_ids = torch.argsort(-rest_key, stable=True)[: pre.shape[0] - n_keep]
+    return torch.cat([surv_ids, rest_ids]), scores
 
 
 def track_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K, rgb, depth_raw,

@@ -2,8 +2,7 @@
 
 Port of foundationpose_tpu/pipeline/scorer.py (the reference's
 ScorePredictor.predict, predict_score.py:160-226), network and depth
-modes. The chunked tournament for more than 252 hypotheses is not
-ported yet.
+modes, and the chunked tournament for more hypotheses than one group.
 """
 from __future__ import annotations
 
@@ -67,3 +66,61 @@ def score_poses(
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
     return scores
+
+
+@torch.inference_mode()
+def score_poses_tournament(
+    net,
+    cfg: ScorerCfg,
+    mesh: MeshTensors,
+    poses: torch.Tensor,
+    K: torch.Tensor,
+    rgb: torch.Tensor,
+    xyz_map: torch.Tensor,
+    mesh_diameter,
+    valid: torch.Tensor | None = None,
+    group_size: int = 252,
+) -> torch.Tensor:
+    """Hierarchical tournament for hypothesis sets larger than one group.
+
+    The reference ScorePredictor's while-loop (predict_score.py:202-213):
+    hypotheses are scored in chunks of `group_size` (the last padded by
+    repeating the first rows, cyclically when fewer rows than the pad
+    are left, marked invalid), each chunk's winner (its first maximum)
+    advances, and the final round's scores get +100 so its rows outrank
+    everything eliminated earlier, which stays at 0. For
+    N <= group_size this is one score_poses pass."""
+    N = poses.shape[0]
+    if N <= group_size:
+        return score_poses(net, cfg, mesh, poses, K, rgb, xyz_map, mesh_diameter, valid=valid)
+
+    dev = poses.device
+    scores_global = torch.zeros(N, dtype=torch.float32, device=dev)
+    global_ids = torch.arange(N, device=dev)
+    cur, cur_valid = poses, valid
+    while True:
+        n = cur.shape[0]
+        if cur_valid is None:
+            cur_valid = torch.ones(n, dtype=torch.bool, device=dev)
+        pad = (-n) % group_size
+        if pad:
+            # the JAX package pads with cur[:pad], too few rows when
+            # pad > n (it then fails); cyclic repeats are the same rows
+            # whenever it does not
+            cur = torch.cat([cur, cur[torch.arange(pad, device=dev) % n]])
+            cur_valid = torch.cat([cur_valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
+        n_chunks = cur.shape[0] // group_size
+        scores = torch.cat([
+            score_poses(net, cfg, mesh, cur[c * group_size:(c + 1) * group_size], K, rgb,
+                        xyz_map, mesh_diameter,
+                        valid=cur_valid[c * group_size:(c + 1) * group_size])
+            for c in range(n_chunks)
+        ])
+        if n_chunks == 1:
+            scores_global[global_ids] = scores[: len(global_ids)] + 100.0
+            return scores_global
+        winners = torch.argmax(scores.reshape(n_chunks, group_size), dim=-1)
+        winners = winners + torch.arange(n_chunks, device=dev) * group_size
+        global_ids = global_ids[winners[winners < n]]
+        cur = poses[global_ids]
+        cur_valid = valid[global_ids] if valid is not None else None

@@ -120,6 +120,21 @@ def test_launch_counters_count_launches(card):
     assert raster_cuda.KERNEL.launches == r0
 
 
+def test_funneled_register_matches_cpu(card):
+    """An f32 funneled register at test width (prune after 1 of 2
+    iterations, keep 8): the whole order equal on the card and the CPU,
+    poses within 1e-4, K1 launched 4 times (2 + 1 pre-score + 1)."""
+    from chip_smoke import funnel_slice
+
+    cpu = funnel_slice("cpu")
+    r0 = raster_cuda.KERNEL.launches
+    gpu = funnel_slice(card)
+    assert raster_cuda.KERNEL.launches - r0 == 4
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    assert np.abs(gpu[1] - cpu[1]).max() < 1e-4 and np.abs(gpu[2] - cpu[2]).max() < 1e-4
+    assert (cpu[3] > 1e4).sum() == 8
+
+
 def _row_bound(abs_sum):
     """Atomic sums run in another order each launch: per-row bound."""
     return 1e-5 * abs_sum + 1e-30

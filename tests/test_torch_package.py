@@ -80,13 +80,61 @@ def _assert_no_jax_imports(paths):
 
 
 def test_package_sources_import_no_jax():
-    """Neither the package nor chip_smoke.py imports JAX or the JAX
+    """Neither the package (every subpackage, the checkpoint, dataset and
+    command-line ones included) nor chip_smoke.py imports JAX or the JAX
     package."""
     root = os.path.join(REPO, "foundationpose_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _dirs, files in os.walk(root):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    walked = {os.path.relpath(p, root) for p in paths}
+    for sub in ("utils/checkpoint.py", "utils/metrics.py", "datasets/readers.py",
+                "cli/run_bop.py", "cli/run_demo.py", "models/loading.py",
+                "models/reference_config.py", "geometry/symmetry.py"):
+        assert sub in walked, sub
     _assert_no_jax_imports(paths)
+
+
+def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
+    """The BOP driver, the readers and the checkpoint loaders import with
+    jax, cv2, imageio and yaml blocked: each is imported only where it is
+    used (yaml where a result file or a sidecar config.yml is read)."""
+    script = textwrap.dedent(
+        """
+        import sys
+
+        BLOCKED = ("jax", "cv2", "imageio", "yaml", "foundationpose_tpu")
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import foundationpose_torch.cli.run_bop
+        import foundationpose_torch.cli.run_linemod
+        import foundationpose_torch.cli.run_ycb_video
+        import foundationpose_torch.datasets
+        import foundationpose_torch.models.loading
+        import foundationpose_torch.utils.metrics
+        from foundationpose_torch.models.reference_config import load_reference_yaml
+        try:
+            load_reference_yaml("config.yml")
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("a sidecar config.yml was read without yaml")
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("OK")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_card_tests_import_no_jax():
