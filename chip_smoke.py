@@ -24,6 +24,10 @@ with a nonzero exit and no result line):
    the row's sum of |update|: atomics add in another order each run),
    and their times (K3 in turns with its plain version and index_add_)
    on a synthetic stream (random rows, a hot block, drop sentinels);
+Phases 6-8 and 10 run unpacked full-frame uploads (`UNPACKED`), as
+before the packed, windowed uploads became EstimatorCfg's defaults, so
+their records stay comparable; phase 9 runs the defaults.
+
 6. small slices on the card against the CPU plain path: an f32 register
    + track, an f32 funneled register (prune after 1 iteration, keep 8:
    the whole order equal, poses within 1e-4), the scorer tournament
@@ -42,9 +46,10 @@ with a nonzero exit and no result line):
    and the faces it tests per pixel from its own counts; K2 in turns
    with its plain version and
    scaled_dot_product_attention, also at (1, 252) and (1, 400)), register
-   wall time, per-frame track time, stage times, and 3 traced registers
-   (device busy time and idle share, the kernels and operators that own
-   the device time);
+   wall time, the packed register on its window (the default) in turns
+   with this unpacked one (10 each), per-frame track time, stage times,
+   and 3 traced registers (device busy time and idle share, the kernels
+   and operators that own the device time);
 8. estimator completion: reference-style checkpoints (`.pth` + config.yml
    with BatchNorm and the 6d rotation, seeded full-width nets) loaded on
    the card through cli.run_demo.build_estimator, bit-equal and with
@@ -53,12 +58,27 @@ with a nonzero exit and no result line):
    (EstimatorCfg.fast_register) at the main path's workload with K1 and
    K2 counted around it, and its time beside the full register's, timed
    in turns;
-9. the model-free path: run_neural_object_field (NerfCfg defaults,
+9. video tracking: the full-width estimator (seeded weights, live delta
+   heads) on a 30-frame 640x480 video of the bench mesh rendered by K1:
+   (a) pipelined track_one_async fetched in batches of 4 by
+   fetch_track_results against sync track_one, bit-equal in packed
+   full-frame mode and within TRACK_BOUND windowed; (b) packed windowed
+   against unpacked full-frame tracking within TRACK_BOUND; (c) a 0.2 m
+   jump that outruns the window: recovered full-frame, the frames in
+   flight repaired, bit-equal to full-frame tracking; (d) TrackChain, 16
+   frames replayed from a CUDA graph, bit-equal to 16 track_graph_packed
+   calls and free of host synchronisation; (e) MultiTracker with 3
+   objects against 3 single trackers, full-frame and windowed, within
+   TRACK_BOUND; (f) K1 and K2 launched by every path; then per-frame
+   times in turns (sync unpacked against pipelined windowed, the chain
+   against per-frame calls, MultiTracker against 3 single trackers;
+   medians of 10) and traces of tracked frames and a chain;
+10. the model-free path: run_neural_object_field (NerfCfg defaults,
    n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
    mesh held against the bench mesh (extents within 25%, median vertex
    distance < 5 mm, 1024^2 texture), register on the reconstruction,
    then 20 "cuda"-layout steps; launch counts read around that run;
-10. K3 on the stream a "cuda"-layout step sends it: the (idx, upd) pair of
+11. K3 on the stream a "cuda"-layout step sends it: the (idx, upd) pair of
    one step captured around the hash-grid backward, its share of distinct
    rows (overall and within chunks of 1024-8192 consecutive updates), the
    reductions K3 issues on it (`k3_reductions`) and the table sectors it
@@ -146,6 +166,24 @@ def bound(nbytes, ops, kind):
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _wall_in_turns(fns, n):
+    """Host-clock time of one call of each fn (the card synchronised
+    before and after), taken in the order a, b, b, a, ... until each fn has
+    n samples; returns each fn's median in ms."""
+    import torch
+
+    order = list(fns) + list(reversed(fns))
+    times = {k: [] for k in fns}
+    while min(len(v) for v in times.values()) < n:
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def _in_turns(fns, reps):
@@ -467,11 +505,16 @@ def _frame(mesh, t, hw, K, device):
 
 
 K_SMALL = np.array([[140.0, 0, 80.0], [0, 140.0, 60.0], [0, 0, 1.0]], np.float32)
+# The upload mode of the phases that predate the packed, windowed uploads
+# (EstimatorCfg's defaults since they were ported): full frames, rgb and f32
+# depth uploaded apart, so their records stay comparable.
+UNPACKED = dict(register_pack=False, register_roi=False, track_pack=False, track_roi=False)
 
 
 def _small_scene():
     """The test-width scene: a colored box at (0.01, -0.02, 0.85), 160x120,
-    rendered on the CPU; its f32 estimator config (depth scorer)."""
+    rendered on the CPU; its f32 estimator config (depth scorer, UNPACKED
+    uploads)."""
     from foundationpose_torch.models import RefineNetCfg, ScoreNetCfg
     from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
     from foundationpose_torch.meshio import make_box
@@ -482,7 +525,7 @@ def _small_scene():
         refiner=RefinerCfg(net=RefineNetCfg(base_width=4), input_res=32, compute_dtype="float32"),
         scorer=ScorerCfg(net=ScoreNetCfg(base_width=4), input_res=32, mode="depth",
                          compute_dtype="float32"),
-        min_n_views=4, inplane_step_deg=120.0,
+        min_n_views=4, inplane_step_deg=120.0, **UNPACKED,
     )
     return box, cfg, _frame(box, (0.01, -0.02, 0.85), (120, 160), K_SMALL, "cpu")
 
@@ -573,8 +616,9 @@ def small_slice_phase():
     """f32 slices at test width on the card vs the CPU plain path: register
     + track (same winner, poses within 1e-4), the funneled register (the
     whole order equal, poses within 1e-4), the tournament (the same rows
-    win, scores within 1e-4)."""
+    win, scores within 1e-4). Mode: UNPACKED uploads."""
     box, cfg, frame = _small_scene()
+    print("  mode: unpacked full-frame uploads (register_pack, register_roi, track_pack, track_roi off)")
     res = {}
     for dev in ("cpu", "cuda"):
         est = _estimator(box, cfg, dev, head_scale=0.05)
@@ -610,8 +654,8 @@ def small_slice_phase():
 
 
 def main_path_phase():
-    """Full-width register + 3 tracked frames; returns the launch counts
-    of that run and the estimator + frame for timing."""
+    """Full-width register + 3 tracked frames, UNPACKED uploads; returns
+    the launch counts of that run and the estimator + frame for timing."""
     import torch
 
     from foundationpose_torch.ops import attention_cuda, raster_cuda
@@ -620,9 +664,11 @@ def main_path_phase():
     mesh = _bench_mesh()
     raster = RasterCfg(cull_backfaces=True)  # closed, outward-wound mesh: exact
     cfg = EstimatorCfg(
-        refiner=RefinerCfg(raster=raster), scorer=ScorerCfg(mode="network", raster=raster)
+        refiner=RefinerCfg(raster=raster), scorer=ScorerCfg(mode="network", raster=raster),
+        **UNPACKED,
     )
     est = _estimator(mesh, cfg, "cuda")
+    print("  mode: unpacked full-frame uploads (register_pack, register_roi, track_pack, track_roi off)")
     n_hyp = int(est.hyp_valid.sum())
     frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
     print(f"  hypotheses {n_hyp} (+{len(est.hyp_valid) - n_hyp} pad), "
@@ -751,6 +797,23 @@ def timing_phase(est, frame, n_hyp):
         reg.append(time.perf_counter() - t0)
     t["register_ms_median3"] = float(np.median(reg)) * 1e3
     t["register_hyp_per_s"] = n_hyp / float(np.median(reg))
+    # The packed register on a detection-sized window (EstimatorCfg's
+    # defaults) in turns with this unpacked full-frame one.
+    packed = _tracker(est, **PACKED)
+    roi = packed._register_roi_window(K_FULL, frame[1], frame[2])
+    p_unpacked = est.register(K_FULL, *frame, iteration=5)
+    p_packed = packed.register(K_FULL, *frame, iteration=5)
+    print(f"  packed register: window {roi} of {frame[1].shape}, recoveries "
+          f"{packed.register_roi_recoveries}, best hypothesis {packed.best_id} (unpacked "
+          f"{est.best_id}), |dt| {np.abs(p_packed[:3, 3] - p_unpacked[:3, 3]).max() * 1e3:.4f} mm")
+    if roi is None or packed.register_roi_recoveries:
+        raise AssertionError("the packed register did not run on its window")
+    t.update({f"register_{k}_ms_in_turns_median10": v for k, v in _wall_in_turns({
+        "unpacked": lambda: est.register(K_FULL, *frame, iteration=5),
+        "packed_roi": lambda: packed.register(K_FULL, *frame, iteration=5),
+    }, 10).items()})
+    t["register_window_px"] = roi[2]
+    del packed
     trk = []
     est.track_one(frame[0], frame[1], K_FULL, iteration=2)  # warm-up
     for _ in range(10):
@@ -876,6 +939,7 @@ def completion_phase(est, frame):
     mesh = est.mesh_ori
     checkpoint_check(mesh, "cuda")
     funnel = _estimator(mesh, est.cfg.fast_register(), "cuda")
+    print("  mode: unpacked full-frame uploads, as the main path's estimator")
     n_hyp = int(funnel.hyp_valid.sum())
     torch.cuda.synchronize()
     raster_cuda.KERNEL.launches = 0
@@ -915,6 +979,349 @@ def completion_phase(est, frame):
     t.update(_profile("register_funneled", lambda: funnel.register(K_FULL, *frame, iteration=5), 3))
     _print_times(t)
     return counts, t
+
+
+# --------------------------------------------------------- video tracking
+
+PACKED = dict(register_pack=True, register_roi=True, track_pack=True, track_roi=True)
+VIDEO_FRAMES = 30
+CHAIN_K = 16
+# Bound on two tracking runs that differ by rounding only (packed against
+# unpacked uploads: 0.125 mm depth quantization; a window's shifted
+# principal point; one batched forward against M): the JAX package's own
+# test bound of 1e-3 on pose entries, as translation and rotation angle.
+TRACK_BOUND_MM, TRACK_BOUND_DEG = 1.0, 0.1
+
+
+def _tracker(est, **cfg):
+    """Another estimator over est's mesh and nets (shared modules) with
+    config fields replaced, starting from est's tracking state."""
+    import dataclasses
+
+    from foundationpose_torch.pipeline import FoundationPose
+
+    t = FoundationPose(mesh=est.mesh_ori, cfg=dataclasses.replace(est.cfg, **cfg),
+                       refiner_params=est.refiner, scorer_params=est.scorer, device=est.device)
+    if est.pose_last is not None:
+        _set_state(t, (est.pose_last.clone(), est._pose_hint.copy()))
+    return t
+
+
+def _set_state(e, state):
+    """Put a tracker at (device pose, host hint) with a fresh chain."""
+    e.pose_last = state[0].clone()
+    e._pose_hint = state[1].copy()
+    e._chain_repair = None
+
+
+def _video_poses(n, start=(0.02, -0.01, 0.9), step=(0.003, 0.001, -0.002), deg=0.3):
+    """A pose a frame: translation moving by `step` (m) and the object
+    turning `deg` degrees a frame about its y axis."""
+    P = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        a = np.deg2rad(deg * i)
+        P[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        P[i, :3, 3] = np.asarray(start) + i * np.asarray(step)
+    return P
+
+
+def _render_video(meshes, poses, hw=(480, 640)):
+    """Frames of the meshes at poses[m][i], z-merged, rendered by K1 on the
+    card (one batch of frames per mesh): [(rgb u8, depth f32, mask u8)]."""
+    import torch
+
+    from foundationpose_torch.ops.rasterizer import render_mesh
+
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    rgb = depth = mask = None
+    for mesh, P in zip(meshes, poses):
+        out = render_mesh(T(mesh.vertices), torch.as_tensor(mesh.faces, device="cuda"), T(P),
+                          T(K_FULL), out_hw=hw, vertex_color=T(mesh.vertex_colors / 255.0),
+                          vnormals=T(mesh.vertex_normals))
+        d = torch.where(out.mask, out.depth, torch.full_like(out.depth, float("inf")))
+        if depth is None:
+            rgb, depth, mask = out.color, d, out.mask
+        else:
+            closer = d < depth
+            rgb = torch.where(closer[..., None], out.color, rgb)
+            depth, mask = torch.minimum(depth, d), mask | out.mask
+    depth = torch.where(torch.isinf(depth), torch.zeros_like(depth), depth)
+    rgb = (rgb.cpu().numpy() * 255).astype(np.uint8)
+    return [(rgb[i], depth[i].cpu().numpy().astype(np.float32), mask[i].cpu().numpy().astype(np.uint8))
+            for i in range(len(poses[0]))]
+
+
+def _live_heads(est, frame, pose, target=0.01):
+    """Scale the refiner's delta heads so that its largest output on the
+    crop of `pose` in `frame` is `target` (about 1 mm and 0.2 degrees an
+    iteration): live, non-zero deltas, so a tracking path that reads the
+    wrong frame or pose moves the poses, without the random net throwing
+    the object out of view in 30 frames."""
+    import torch
+
+    from foundationpose_torch.geometry.projection import depth_to_xyz_map
+    from foundationpose_torch.pipeline.crops import make_crop_inputs
+
+    rc = est.cfg.refiner
+    Kt = torch.as_tensor(K_FULL, device="cuda")
+    rgb = torch.as_tensor(frame[0], device="cuda").float() / 255.0
+    xyz = depth_to_xyz_map(torch.as_tensor(frame[1], device="cuda"), Kt)
+    P = torch.as_tensor(pose, dtype=torch.float32, device="cuda")[None]
+    with torch.inference_mode():
+        a, b, _ = make_crop_inputs(est.mesh_tensors, P, Kt, rgb, xyz, est._diam,
+                                   input_res=rc.input_res, crop_ratio=rc.crop_ratio,
+                                   normalize_xyz=rc.normalize_xyz, invalid_z=rc.xyz_invalid_z,
+                                   raster=rc.raster)
+        out = est.refiner(a, b, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for head, key in ((est.refiner.trans_head, "trans"), (est.refiner.rot_head, "rot")):
+            s = target / float(out[key].abs().max())
+            head[1].weight.mul_(s)
+            head[1].bias.mul_(s)
+
+
+def _pose_gap(a, b):
+    """(max |dt| in mm, max rotation angle in degrees) between pose lists."""
+    a, b = np.asarray(a), np.asarray(b)
+    dt = float(np.abs(a[..., :3, 3] - b[..., :3, 3]).max()) * 1e3
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): exact for small angles,
+    # where the arccos of the trace rounds to 0
+    chord = np.linalg.norm(a[..., :3, :3] - b[..., :3, :3], axis=(-2, -1)) / (2 * np.sqrt(2))
+    return dt, float(np.degrees(2 * np.arcsin(np.clip(chord, 0, 1))).max())
+
+
+def _check_gap(name, a, b):
+    dt, deg = _pose_gap(a, b)
+    print(f"  {name}: max |dt| {dt:.5f} mm, max angle {deg:.5f} deg "
+          f"(bound {TRACK_BOUND_MM} mm, {TRACK_BOUND_DEG} deg)")
+    if not (dt <= TRACK_BOUND_MM and deg <= TRACK_BOUND_DEG):
+        raise AssertionError(f"{name}: the two runs differ beyond the bound")
+    return dt, deg
+
+
+def _sync_pass(e, frames):
+    return [e.track_one(r, d, K_FULL, iteration=2) for r, d, _m in frames]
+
+
+def _pipelined_pass(e, frames, batch=4, depth=8):
+    """track_one_async with up to `depth` frames in flight, fetched in
+    batches of `batch` by fetch_track_results (as cli/run_demo.py)."""
+    from collections import deque
+
+    from foundationpose_torch.pipeline import fetch_track_results
+
+    pending, out = deque(), []
+    for r, d, _m in frames:
+        pending.append(e.track_one_async(r, d, K_FULL, iteration=2))
+        if len(pending) >= depth:
+            out += fetch_track_results([pending.popleft() for _ in range(batch)])
+    while pending:
+        out += fetch_track_results([pending.popleft() for _ in range(min(batch, len(pending)))])
+    return out
+
+
+class _Counts:
+    """K1 / K2 launches of each path of a phase, the counters set to 0
+    before each and read after it."""
+
+    def __init__(self):
+        self.paths = {}
+
+    def run(self, name, fn, *args):
+        import torch
+
+        from foundationpose_torch.ops import attention_cuda, raster_cuda
+
+        torch.cuda.synchronize()
+        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+        self.paths[name] = k
+        print(f"  launches {name}: K1 {k[0]} K2 {k[1]}")
+        if not (k[0] > 0 and k[1] > 0):
+            raise AssertionError(f"{name} did not launch K1 and K2")
+        return out
+
+    def total(self):
+        return {"raster": sum(k[0] for k in self.paths.values()),
+                "attention": sum(k[1] for k in self.paths.values())}
+
+
+def video_phase():
+    """The video-tracking path at full width (base_width 64, 160x160 crops,
+    bf16, seeded weights, live delta heads) on a 30-frame 640x480 video of
+    the bench mesh rendered by K1: (a) pipelined against synchronous
+    tracking, (b) packed windowed against unpacked full-frame tracking,
+    (c) a jump that outruns the window, recovered and repaired through the
+    frames in flight, (d) the chain of 16 frames replayed from a CUDA graph
+    against 16 per-frame calls, (e) MultiTracker with 3 objects against 3
+    single trackers, (f) K1 / K2 launches of each path; then times, each
+    in turns with its counterpart, and traces."""
+    import torch
+
+    from foundationpose_torch.pipeline import EstimatorCfg, MultiTracker, RasterCfg, RefinerCfg, ScorerCfg
+    from foundationpose_torch.pipeline.graph import TrackChain, pack_track_frame, track_graph_packed
+
+    mesh = _bench_mesh()
+    gts = _video_poses(VIDEO_FRAMES)
+    frames = _render_video([mesh], [gts])
+    raster = RasterCfg(cull_backfaces=True)
+    cfg = EstimatorCfg(refiner=RefinerCfg(raster=raster),
+                       scorer=ScorerCfg(mode="network", raster=raster), **PACKED)
+    est = _estimator(mesh, cfg, "cuda", head_scale=1.0)
+    raw0 = gts[0] @ np.linalg.inv(est.get_tf_to_centered_mesh())
+    _live_heads(est, frames[0], raw0)
+    counts, t = _Counts(), {}
+    print(f"  {VIDEO_FRAMES} frames 640x480, mode: packed uploads on windows (EstimatorCfg defaults)")
+    pose = counts.run("register (packed, window)",
+                      lambda: est.register(K_FULL, *frames[0], iteration=5))
+    print(f"  register: t = {pose[:3, 3]}, window {est._register_roi_window(K_FULL, *frames[0][1:])}, "
+          f"recoveries {est.register_roi_recoveries}")
+    start = (est.pose_last.clone(), est._pose_hint.copy())
+    video = frames[1:]
+    full = _tracker(est, track_roi=False)  # packed full-frame
+    unpacked = _tracker(est, **UNPACKED)
+
+    # (a) pipelined against synchronous, on the same frames
+    sync_full = counts.run("sync track_one (packed full-frame)", _sync_pass, full, video)
+    _set_state(full, start)
+    pipe_full = counts.run("pipelined track_one_async (packed full-frame)", _pipelined_pass, full, video)
+    equal = bool(np.array_equal(np.stack(sync_full), np.stack(pipe_full)))
+    print(f"  (a) pipelined (batches of 4, 8 in flight) against sync, packed full-frame: "
+          f"equal {equal}")
+    if not equal:
+        raise AssertionError("(a) pipelined tracking differs from synchronous tracking")
+    _set_state(est, start)
+    sync_roi = counts.run("sync track_one (packed, window)", _sync_pass, est, video)
+    _set_state(est, start)
+    pipe_roi = counts.run("pipelined track_one_async (packed, window)", _pipelined_pass, est, video)
+    t["video_roi_pipelined_vs_sync_mm"], t["video_roi_pipelined_vs_sync_deg"] = _check_gap(
+        "(a) windowed, pipelined against sync (the lagging windows move)", pipe_roi, sync_roi)
+    if est.track_stats["roi_recoveries"]:
+        raise AssertionError(f"smooth motion needed a recovery: {est.track_stats}")
+
+    # (b) packed windowed against unpacked full-frame, synchronous
+    sync_unpacked = counts.run("sync track_one (unpacked full-frame)", _sync_pass, unpacked, video)
+    t["video_roi_vs_unpacked_mm"], t["video_roi_vs_unpacked_deg"] = _check_gap(
+        "(b) packed windowed against unpacked full-frame", sync_roi, sync_unpacked)
+    moved = _pose_gap(sync_roi[-1], pose)
+    print(f"  the live heads moved the pose {moved[0]:.2f} mm, {moved[1]:.3f} deg over the video")
+    if moved[0] < 1.0:
+        raise AssertionError("the live heads did not move the pose")
+
+    # (c) a jump the window cannot follow: the pose follows the object (as a
+    # trained refiner would) while the window, placed from the last fetched
+    # pose, stays behind; four frames in flight
+    jump = gts[20:24].copy()
+    jump[:, 0, 3] += 0.2
+    jframes = _render_video([mesh], [jump])
+    _set_state(est, start)
+    _sync_pass(est, video[:19])
+    forced = torch.as_tensor(jump[0] @ np.linalg.inv(est.get_tf_to_centered_mesh()),
+                             dtype=torch.float32, device="cuda")
+    est.pose_last = forced
+    est.track_stats = {"frames": 0, "roi_recoveries": 0, "chain_repairs": 0}
+    got = counts.run("jump: pipelined, recovered", _pipelined_pass, est, jframes)
+    _set_state(full, (forced, est._pose_hint))
+    want = _sync_pass(full, jframes)
+    equal = bool(np.array_equal(np.stack(got), np.stack(want)))
+    print(f"  (c) jump of 0.2 m: {est.track_stats}, poses equal to full-frame tracking {equal}")
+    if not (est.track_stats["roi_recoveries"] >= 1 and est.track_stats["chain_repairs"] >= 1
+            and est._chain_repair is None and equal):
+        raise AssertionError("(c) the window recovery or the chain repair failed")
+
+    # (d) the chain: CHAIN_K frames, one upload, a CUDA graph replayed per frame
+    hw = frames[0][1].shape
+    bufs = torch.as_tensor(np.stack([pack_track_frame(r, d, 0, 0) for r, d, _m in video[:CHAIN_K]]),
+                           device="cuda")
+    Kd = torch.as_tensor(K_FULL, device="cuda")
+    pose0 = start[0]
+    args = (est.refiner, est.cfg, est.mesh_tensors)
+    chain = TrackChain(*args, Kd, est._diam, hw, 2, bufs.shape[1])
+    traj = counts.run("chain (capture + replays)", chain, pose0, bufs)
+
+    def per_frame():
+        p, out = pose0, []
+        with torch.inference_mode():
+            for i in range(CHAIN_K):
+                p = track_graph_packed(*args, p, Kd, bufs[i], est._diam, hw, 2)
+                out.append(p)
+        return torch.stack(out)
+
+    seq = per_frame()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj2 = chain(pose0, bufs)  # replays only: no host synchronisation
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    d_seq = float((traj - seq).abs().max())
+    print(f"  (d) chain of {CHAIN_K} against per-frame track_graph_packed: bit-equal "
+          f"{bool(torch.equal(traj, seq))} (max |d| {d_seq:.3e}); replays bit-equal "
+          f"{bool(torch.equal(traj, traj2))}, no synchronisation between steps")
+    if not (torch.equal(traj, seq) and torch.equal(traj, traj2)):
+        raise AssertionError("(d) the chain differs from per-frame tracking")
+
+    # (e) MultiTracker: 3 copies of the bench mesh at distinct poses
+    starts = [(-0.16, 0.02, 0.95), (0.0, -0.05, 1.05), (0.15, 0.04, 0.9)]
+    mposes = [_video_poses(12, start=s_, step=(0.002 * (1 - m), 0.001, 0.001), deg=0.2 * (m + 1))
+              for m, s_ in enumerate(starts)]
+    mframes = _render_video([mesh] * 3, mposes)
+    tf_inv = np.linalg.inv(est.get_tf_to_centered_mesh())
+
+    def singles_at(mode):
+        out = []
+        for m in range(3):
+            s_ = _tracker(est, **mode)
+            raw = mposes[m][0] @ tf_inv
+            _set_state(s_, (torch.as_tensor(raw, dtype=torch.float32, device="cuda"), raw))
+            out.append(s_)
+        return out
+
+    for name, mode in (("full-frame", dict(track_roi=False)), ("window", {})):
+        singles = singles_at(mode)
+        multi = MultiTracker.from_estimators(singles)
+        m_out = counts.run(f"MultiTracker M=3 ({name})", lambda: [
+            multi.track(r, d, K_FULL, iteration=2) for r, d, _m in mframes[1:]])
+        s_out = [np.stack([s_.track_one(r, d, K_FULL, iteration=2) for s_ in singles])
+                 for r, d, _m in mframes[1:]]
+        key = "full" if name == "full-frame" else "roi"
+        t[f"multi_{key}_vs_singles_mm"], t[f"multi_{key}_vs_singles_deg"] = _check_gap(
+            f"(e) MultiTracker M=3 against 3 single trackers, {name}", m_out, s_out)
+    t["video_launches_by_path"] = json.dumps(counts.paths)
+
+    # times, each in turns with its counterpart
+    def timed_pass(e, run):
+        def go():
+            _set_state(e, start)
+            run(e, video)
+        return go
+
+    tp = _wall_in_turns({"sync_unpacked": timed_pass(unpacked, _sync_pass),
+                         "pipelined_roi": timed_pass(est, _pipelined_pass)}, 10)
+    t["track_sync_unpacked_ms_per_frame"] = tp["sync_unpacked"] / len(video)
+    t["track_pipelined_roi_ms_per_frame"] = tp["pipelined_roi"] / len(video)
+    tc = _wall_in_turns({"chain": lambda: chain(pose0, bufs), "per_frame": per_frame}, 10)
+    t["chain_ms_per_frame"] = tc["chain"] / CHAIN_K
+    t["chain_per_frame_calls_ms_per_frame"] = tc["per_frame"] / CHAIN_K
+    mf = iter(mframes[1:] * 10)
+
+    def singles_frame():
+        r, d, _m = next(mf)
+        return [s_.track_one(r, d, K_FULL, iteration=2) for s_ in singles]
+
+    tm = _wall_in_turns({"multi": lambda: multi.track(*next(mf)[:2], K_FULL, iteration=2),
+                         "singles": singles_frame}, 10)
+    t["multi_m3_ms_per_frame"], t["singles_m3_ms_per_frame"] = tm["multi"], tm["singles"]
+    r, d, _m = video[0]
+    t.update(_profile("track_unpacked", lambda: unpacked.track_one(r, d, K_FULL, iteration=2), 10))
+    t.update(_profile("track_roi", lambda: est.track_one(r, d, K_FULL, iteration=2), 10))
+    t.update(_profile("chain16", lambda: chain(pose0, bufs).cpu(), 2))
+    for k in ("ms_untraced_2", "ms_cuda_traced", "device_activities", "device_busy_ms"):
+        t[f"chain16_{k}_per_frame"] = t[f"chain16_{k}"] / CHAIN_K
+    _print_times(t)
+    return counts.total(), t
 
 
 def _print_times(t):
@@ -1266,7 +1673,8 @@ def model_free_phase():
     if recon.texture.shape != (1024, 1024, 3) or not np.isfinite(recon.vertices).all():
         raise AssertionError("the reconstruction has no 1024^2 texture or non-finite vertices")
 
-    est = _estimator(recon, EstimatorCfg(refiner=RefinerCfg(), scorer=ScorerCfg(mode="network")), "cuda")
+    est = _estimator(recon, EstimatorCfg(refiner=RefinerCfg(), scorer=ScorerCfg(mode="network"),
+                                         **UNPACKED), "cuda")
     frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
     before = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
     pose = est.register(K_FULL, *frame, iteration=5)
@@ -1411,6 +1819,7 @@ def _profile(name, fn, n):
               f"{e.count / n:6.0f} calls/call")
     return {f"{name}_ms_untraced_{n}": plain_ms,
             f"{name}_ms_cuda_traced": wall_ms,
+            f"{name}_device_activities": n_act / n,
             f"{name}_device_busy_ms": busy_ms,
             f"{name}_device_idle_share": 1.0 - busy_ms / wall_ms,
             **{k: v for k, v in share.items() if v > 0}}
@@ -1432,6 +1841,8 @@ def main():
                             completion_phase, est, frame)
     t.update(t_fn)
     del est
+    vid_counts, t_vid = phase("video tracking: async, windows, chain, MultiTracker", 240, video_phase)
+    t.update(t_vid)
     mf_counts, t_mf, mf = phase("model-free path: reconstruct, register, cuda layout", 420, model_free_phase)
     seg.update(phase("K3 on the stream of a captured cuda-layout step", 180, k3_real_phase, mf[1]))
     t.update(phase("model-free timing and step profile", 240, nerf_timing_phase, t_mf, *mf))
@@ -1446,9 +1857,11 @@ def main():
     k1_err = max(k1_err, t["k1_err_timed_shape"], t["k1_err_recon"])
     kernels = [
         entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
-              counts["raster"] + fn_counts["raster"] + mf_counts["raster"], k1_err, "k1", t),
+              counts["raster"] + fn_counts["raster"] + vid_counts["raster"] + mf_counts["raster"],
+              k1_err, "k1", t),
         entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
-              counts["attention"] + fn_counts["attention"] + mf_counts["attention"], k2_err, "k2", t),
+              counts["attention"] + fn_counts["attention"] + vid_counts["attention"]
+              + mf_counts["attention"], k2_err, "k2", t),
         # K3's times are those of the captured step's stream; the synthetic
         # stream's (random rows, sentinels) stand beside them.
         dict(entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",

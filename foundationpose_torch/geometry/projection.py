@@ -22,13 +22,18 @@ def depth_to_xyz_map(
     depth: torch.Tensor, K: torch.Tensor, zfar: float = float("inf")
 ) -> torch.Tensor:
     """Per-pixel camera-space XYZ (..., H, W) -> (..., H, W, 3); invalid
-    pixels (z < 0.001 or z > zfar) become zeros."""
+    pixels (z < 0.001 or z > zfar) become zeros. K is (3, 3), or (..., 3,
+    3) with one matrix per leading index of depth."""
     H, W = depth.shape[-2], depth.shape[-1]
     us = torch.arange(W, dtype=depth.dtype, device=depth.device)
     vs = torch.arange(H, dtype=depth.dtype, device=depth.device)
     vv, uu = torch.meshgrid(vs, us, indexing="ij")
-    xs = (uu - K[0, 2]) * depth / K[0, 0]
-    ys = (vv - K[1, 2]) * depth / K[1, 1]
+
+    def k(i, j):
+        return K[..., i, j, None, None]
+
+    xs = (uu - k(0, 2)) * depth / k(0, 0)
+    ys = (vv - k(1, 2)) * depth / k(1, 1)
     xyz = torch.stack([xs, ys, depth], dim=-1)
     invalid = (depth < 0.001) | (depth > zfar)
     return torch.where(invalid[..., None], torch.zeros_like(xyz), xyz)

@@ -2,6 +2,7 @@
 
 Port of foundationpose_tpu/ops/depth_filters.py: each 5x5 stencil is the
 stack of its (2r+1)^2 shifted windows, and only in-image neighbours count.
+Both filters take one (H, W) frame or a batch (..., H, W) of them.
 """
 from __future__ import annotations
 
@@ -12,18 +13,23 @@ from .. import torch_config  # noqa: F401
 
 
 def _window_stack(x: torch.Tensor, radius: int, fill: float):
-    """(H, W) -> shifted windows (k*k, H, W) and their in-image mask."""
-    H, W = x.shape
+    """(..., H, W) -> shifted windows (k*k, ..., H, W) and their in-image
+    mask (k*k, H, W), broadcast over the leading dims. A batch of frames
+    gives each frame what it gives alone."""
+    H, W = x.shape[-2:]
     k = 2 * radius + 1
-    xp = F.pad(x[None, None], (radius,) * 4, value=fill)[0, 0]
+    lead = x.shape[:-2]
+    xp = F.pad(x.reshape(-1, 1, H, W), (radius,) * 4, value=fill)[:, 0]
+    xp = xp.reshape(*lead, H + 2 * radius, W + 2 * radius)
     mp = F.pad(
         torch.ones((1, 1, H, W), dtype=torch.float32, device=x.device),
         (radius,) * 4,
         value=0.0,
     )[0, 0] > 0
-    wins = [xp[dv : dv + H, du : du + W] for dv in range(k) for du in range(k)]
+    wins = [xp[..., dv : dv + H, du : du + W] for dv in range(k) for du in range(k)]
     masks = [mp[dv : dv + H, du : du + W] for dv in range(k) for du in range(k)]
-    return torch.stack(wins), torch.stack(masks)
+    masks = torch.stack(masks).reshape(k * k, *([1] * len(lead)), H, W)
+    return torch.stack(wins), masks
 
 
 def erode_depth(
@@ -66,7 +72,8 @@ def bilateral_filter_depth(
 
     offs = torch.arange(k, dtype=torch.float32, device=depth.device) - r
     dv, du = torch.meshgrid(offs, offs, indexing="ij")
-    w_spatial = torch.exp(-(du**2 + dv**2) / (2.0 * sigma_d**2)).reshape(-1, 1, 1)
+    w_spatial = torch.exp(-(du**2 + dv**2) / (2.0 * sigma_d**2))
+    w_spatial = w_spatial.reshape(-1, *([1] * depth.ndim))
 
     near_mean = torch.abs(wins - mean_depth[None]) < 0.01
     use = valid & near_mean

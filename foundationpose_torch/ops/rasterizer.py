@@ -191,6 +191,22 @@ def _sample_texture(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return top * (1 - fy) + bot * fy
 
 
+_DEFAULT_LIGHT: dict = {}
+
+
+def _default_light(dev) -> torch.Tensor:
+    """The default light direction (0, 0, 1) on `dev`, made once per
+    device: a render then copies nothing from the host, which also lets
+    a CUDA graph capture it. Made outside inference mode so that an
+    autograd graph may save it."""
+    light = _DEFAULT_LIGHT.get(dev)
+    if light is None:
+        with torch.inference_mode(False):
+            light = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+        _DEFAULT_LIGHT[dev] = light
+    return light
+
+
 def _prepare(
     pos, faces, poses, K, out_hw, crop_tf, vertex_color, uv, vnormals,
     use_light, get_normal, light_dir, cull_backfaces,
@@ -206,7 +222,7 @@ def _prepare(
     if (use_light or get_normal) and vnormals is None:
         raise ValueError("vnormals required when lighting/normals requested")
     if light_dir is None:
-        light_dir = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+        light_dir = _default_light(dev)
     else:
         light_dir = torch.as_tensor(light_dir, dtype=torch.float32, device=dev)
 

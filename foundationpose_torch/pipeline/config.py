@@ -1,9 +1,12 @@
 """Typed configuration of the estimator pipeline.
 
-Port of foundationpose_tpu/pipeline/config.py, holding the fields this
-package implements: the unpacked full-frame register (with the optional
-prune funnel) and track. The upload-packing and ROI-window fields come
-back with those features.
+Port of foundationpose_tpu/pipeline/config.py, with the JAX package's
+defaults, so `FoundationPose()` computes the same thing in both: the
+register (with the optional prune funnel) and the tracker upload each
+frame as one packed buffer (rgb u8 + depth as u16 0.25 mm fixed point,
+plus a mask bit plane for the register) holding only a window around
+the object, and fall back to the full frame where the object outruns
+the window.
 """
 from __future__ import annotations
 
@@ -66,6 +69,30 @@ class EstimatorCfg:
     # Bake textures to per-vertex colors for hypothesis rendering.
     vertex_color_render: bool = True
     zfar: float = float("inf")
+    # Tracking upload window: each tracking frame is cut on the host to a
+    # square around the last fetched pose before upload, and K's
+    # principal point is shifted by the window offset (an exact change of
+    # viewport: all pipeline geometry flows through K). Size: the
+    # projected crop extent x track_roi_margin + the filter halo, rounded
+    # up to 64 px. Each fetch checks that the refined pose's crop stayed
+    # inside the window and re-runs the frame full-frame otherwise.
+    # False uploads full frames.
+    track_roi: bool = True
+    track_roi_margin: float = 1.8
+    # One flat upload per tracking frame: rgb u8 + depth as u16 0.25 mm
+    # fixed point + the window offset (pipeline/graph.py::pack_track_frame;
+    # quantization <= 0.125 mm). False uploads rgb and f32 depth apart.
+    track_pack: bool = True
+    # The same wire format for register uploads, with the mask as a bit
+    # plane (pack_register_frame).
+    register_pack: bool = True
+    # Upload only a detection-sized window for register (needs
+    # register_pack): a square around the mask covering the projected crop
+    # extent x register_roi_margin. After the run every valid refined
+    # hypothesis's crop is checked against the window, and the frame
+    # re-runs full-frame when one left it.
+    register_roi: bool = True
+    register_roi_margin: float = 1.8
     # Hypothesis funneling (off by default = reference-parity register):
     # refine all hypotheses for `prune_after_iter` iterations, rank them
     # with the weights-free depth-alignment score, then run the remaining

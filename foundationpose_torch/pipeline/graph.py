@@ -1,14 +1,19 @@
 """The register and track bodies: everything a frame computes on device.
 
-Port of foundationpose_tpu/pipeline/graph.py (`_register_body` with
-its prune funnel, `_track_body`, `device_guess_translation`). PyTorch
-runs eagerly, so each body is a plain function of tensors; no step
-copies a value to the host.
+Port of foundationpose_tpu/pipeline/graph.py: `register_body` with its
+prune funnel, `track_body`, `device_guess_translation`, the upload wire
+formats (`pack_track_frame`, `pack_register_frame` on the host, their
+inverses on the device), the packed graphs and `track_chain_graph`.
+PyTorch runs eagerly, so each body is a plain function of tensors; no
+step copies a value to the host. On the card, `TrackChain` captures one
+packed tracking step in a CUDA graph and replays it once per frame: the
+counterpart of the JAX package's `lax.scan` over staged frames.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import torch_config  # noqa: F401
@@ -173,3 +178,211 @@ def track_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K, rgb, depth_ra
         mesh_diameter, iterations=iterations,
     )
     return refined[0]
+
+
+# Fixed-point depth quantum of the packed uploads: 0.25 mm steps (u16 ->
+# 16.38 m range), quantization <= 0.125 mm.
+DEPTH_PACK_SCALE = 4000.0
+TRACK_PACK_FOOTER = 8  # x0_lo, x0_hi, y0_lo, y0_hi + 4 spare bytes
+REGISTER_PACK_FOOTER = 8  # the same (x0, y0) footer after the mask bit plane
+
+
+def _pack_pixels(img, rgb_u8, depth_f32):
+    """rgb into bytes 0-2 of each 5-byte pixel, depth as u16 0.25 mm fixed
+    point (NaN -> 0 = invalid, + 0.5 rounding, clipped) into bytes 3-4,
+    little-endian."""
+    img[..., :3] = rgb_u8
+    mm = np.clip(np.nan_to_num(depth_f32) * DEPTH_PACK_SCALE + 0.5, 0, 65535).astype(np.uint16)
+    img[..., 3] = (mm & 0xFF).astype(np.uint8)
+    img[..., 4] = (mm >> 8).astype(np.uint8)
+
+
+def _footer(x0: int, y0: int):
+    return [x0 & 255, x0 >> 8, y0 & 255, y0 >> 8, 0, 0, 0, 0]
+
+
+def pack_track_frame(rgb_u8, depth_f32, x0: int, y0: int, out=None) -> np.ndarray:
+    """Host side: one flat uint8 buffer of an rgb window, its depth as u16
+    0.25 mm fixed point and the window offset (x0, y0), byte for byte the
+    JAX package's. `out`, if given, is a uint8 array of at least the
+    buffer's size (a pinned staging buffer) and the result is a view of it."""
+    H, W = depth_f32.shape
+    n_img = H * W * 5
+    n = n_img + TRACK_PACK_FOOTER
+    buf = np.empty(n, np.uint8) if out is None else out[:n]
+    _pack_pixels(buf[:n_img].reshape(H, W, 5), rgb_u8, depth_f32)
+    buf[n_img:] = _footer(x0, y0)
+    return buf
+
+
+def pack_register_frame(rgb_u8, depth_f32, mask, x0: int = 0, y0: int = 0, out=None) -> np.ndarray:
+    """Host side: a register frame as one flat uint8 buffer, byte for byte
+    the JAX package's: rgb u8 + depth u16 (5 bytes a pixel), the mask as a
+    little-endian bit plane (1 bit a pixel) and the (x0, y0) footer. The
+    pixel count must be a multiple of 8. `out` as for pack_track_frame."""
+    H, W = depth_f32.shape
+    n_px = H * W
+    if n_px % 8:
+        raise ValueError("frame pixel count must be a multiple of 8")
+    n_img = n_px * 5
+    n = n_img + n_px // 8 + REGISTER_PACK_FOOTER
+    buf = np.empty(n, np.uint8) if out is None else out[:n]
+    _pack_pixels(buf[:n_img].reshape(H, W, 5), rgb_u8, depth_f32)
+    buf[n_img:-REGISTER_PACK_FOOTER] = np.packbits(
+        np.asarray(mask).reshape(-1) != 0, bitorder="little"
+    )
+    buf[-REGISTER_PACK_FOOTER:] = _footer(x0, y0)
+    return buf
+
+
+def _unpack_pixels(img: torch.Tensor):
+    """(..., 5) uint8 pixels -> rgb f32 in [0, 1], depth f32 meters. The
+    depth bytes are joined in int32 (torch's uint16 support is partial);
+    the values are those of the JAX package's uint16 arithmetic."""
+    rgb = img[..., :3].to(torch.float32) / 255.0
+    lo = img[..., 3].to(torch.int32)
+    hi = img[..., 4].to(torch.int32)
+    depth = (lo + hi * 256).to(torch.float32) * (1.0 / DEPTH_PACK_SCALE)
+    return rgb, depth
+
+
+def _offset(foot: torch.Tensor):
+    """(..., >= 4) uint8 footer bytes -> x0, y0 as f32."""
+    f = foot.to(torch.float32)
+    return f[..., 0] + f[..., 1] * 256.0, f[..., 2] + f[..., 3] * 256.0
+
+
+def unpack_track_frame(buf: torch.Tensor, hw: tuple[int, int]):
+    """Device-side inverse of pack_track_frame: (rgb f32 [0, 1], depth f32
+    meters, x0, y0)."""
+    H, W = hw
+    n_img = H * W * 5
+    rgb, depth = _unpack_pixels(buf[:n_img].reshape(H, W, 5))
+    x0, y0 = _offset(buf[n_img:])
+    return rgb, depth, x0, y0
+
+
+def unpack_register_frame(buf: torch.Tensor, hw: tuple[int, int]):
+    """Device-side inverse of pack_register_frame: (rgb f32 [0, 1], depth
+    f32 meters, mask uint8 0/1, x0, y0)."""
+    H, W = hw
+    n_px = H * W
+    n_img = n_px * 5
+    rgb, depth = _unpack_pixels(buf[:n_img].reshape(H, W, 5))
+    bits = buf[n_img:-REGISTER_PACK_FOOTER].to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.int32, device=buf.device)
+    mask = ((bits[:, None] >> shifts[None]) & 1).to(torch.uint8).reshape(H, W)
+    x0, y0 = _offset(buf[-REGISTER_PACK_FOOTER:])
+    return rgb, depth, mask, x0, y0
+
+
+def shift_principal_point(K: torch.Tensor, x0, y0) -> torch.Tensor:
+    """K with its principal point moved by -(x0, y0): the intrinsics of the
+    window at (x0, y0) of the frame. K (..., 3, 3), x0 and y0 (...)."""
+    shift = torch.zeros_like(K)
+    shift[..., 0, 2] = x0
+    shift[..., 1, 2] = y0
+    return K - shift
+
+
+def register_graph_packed(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid,
+                          K, buf, mesh_diameter, hw, iterations):
+    """register_body on a pack_register_frame buffer (flat uint8 on the
+    device): unpack, shift K's principal point by the packed (x0, y0),
+    register."""
+    rgb, depth_raw, mask, x0, y0 = unpack_register_frame(buf, hw)
+    return register_body(refiner_net, scorer_net, cfg, mesh, rot_grid, hyp_valid,
+                         shift_principal_point(K, x0, y0), rgb, depth_raw, mask,
+                         mesh_diameter, iterations)
+
+
+def track_graph_packed(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,
+                       mesh_diameter, hw, iterations):
+    """track_body on a pack_track_frame buffer: unpack, shift the
+    full-frame K's principal point by the packed window offset, track."""
+    rgb, depth_raw, x0, y0 = unpack_track_frame(buf, hw)
+    return track_body(refiner_net, cfg, mesh, pose_last, shift_principal_point(K_full, x0, y0),
+                      rgb, depth_raw, mesh_diameter, iterations)
+
+
+class TrackChain:
+    """k tracking steps chained on the device over k staged packed frames.
+
+    On the card the first call captures one `track_graph_packed` step in
+    a `torch.cuda.CUDAGraph` (after warm-up runs on a side stream, so that
+    cuDNN and cuBLAS have made their choices and K1's library is loaded);
+    each later frame copies its buffer into the graph's static input,
+    replays the graph and chains the pose device to device. One launch of
+    the graph per frame and no host synchronisation between steps. The
+    capture reads the inputs given here by address, so they must stay
+    alive and unchanged; the faces of `mesh` must have been checked
+    (`make_mesh_tensors` does it), else the first render reads them back.
+    On the CPU each step runs eagerly."""
+
+    def __init__(self, refiner_net, cfg: EstimatorCfg, mesh, K_full, mesh_diameter, hw,
+                 iterations, n_bytes):
+        self.step_args = (refiner_net, cfg, mesh)
+        self.K_full = K_full
+        self.diam = mesh_diameter
+        self.hw = tuple(hw)
+        self.iterations = int(iterations)
+        dev = K_full.device
+        self.device = dev
+        self.graph = None
+        self._buf = torch.zeros(n_bytes, dtype=torch.uint8, device=dev)
+        self._pose = torch.eye(4, dtype=torch.float32, device=dev)
+        self._out = None
+
+    def _step(self, pose, buf):
+        return track_graph_packed(*self.step_args, pose, self.K_full, buf, self.diam, self.hw,
+                                  self.iterations)
+
+    def _capture(self, warmup=2):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                self._step(self._pose, self._buf)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._out = self._step(self._pose, self._buf)
+
+    @torch.inference_mode()
+    def __call__(self, pose0: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
+        """pose0 (4, 4), bufs (k, n_bytes) uint8 on the device -> the (k, 4,
+        4) trajectory on the device."""
+        if self.device.type != "cuda":
+            poses, p = [], pose0
+            for i in range(bufs.shape[0]):
+                p = self._step(p, bufs[i])
+                poses.append(p)
+            return torch.stack(poses)
+        if self.graph is None:
+            self._capture()
+        out = torch.empty((bufs.shape[0], 4, 4), dtype=torch.float32, device=self.device)
+        self._pose.copy_(pose0)
+        for i in range(bufs.shape[0]):
+            self._buf.copy_(bufs[i])
+            self.graph.replay()
+            self._pose.copy_(self._out)
+            out[i].copy_(self._out)
+        return out
+
+
+def track_chain_graph(refiner_net, cfg: EstimatorCfg, mesh, pose0, K_full, bufs, mesh_diameter,
+                      hw, iterations):
+    """k sequential tracking steps over k pack_track_frame buffers, chained
+    on the device; returns the (k, 4, 4) trajectory on the device. `bufs`
+    is a (k, n_bytes) uint8 array or tensor: a host array is uploaded once
+    (pinned, asynchronous). Each step computes what `track_graph_packed`
+    computes (see TrackChain)."""
+    dev = K_full.device
+    if isinstance(bufs, np.ndarray):
+        host = torch.from_numpy(np.ascontiguousarray(bufs))
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        bufs = host.to(dev, non_blocking=True)
+    chain = TrackChain(refiner_net, cfg, mesh, K_full, mesh_diameter, hw, iterations,
+                       bufs.shape[1])
+    return chain(pose0, bufs)

@@ -135,6 +135,37 @@ def test_funneled_register_matches_cpu(card):
     assert (cpu[3] > 1e4).sum() == 8
 
 
+def test_track_chain_replays_per_frame_packed(card):
+    """track_chain_graph on the card (one tracking step captured in a CUDA
+    graph, replayed once per frame) against track_graph_packed called per
+    frame: bit-equal trajectories; K1 and K2 launched while capturing."""
+    import dataclasses
+
+    from chip_smoke import K_SMALL, _estimator, _frame, _small_scene
+    from foundationpose_torch.pipeline import graph
+
+    box, cfg, _frame0 = _small_scene()
+    est = _estimator(box, dataclasses.replace(cfg, track_roi=False), card, head_scale=0.05)
+    frames = [_frame(box, (0.01 + 0.002 * i, -0.02, 0.85), (120, 160), K_SMALL, "cpu") for i in range(5)]
+    bufs = np.stack([graph.pack_track_frame(r, d, 0, 0) for r, d, _m in frames])
+    pose0 = torch.eye(4, device=card)
+    pose0[:3, 3] = torch.tensor([0.012, -0.018, 0.86])
+    K = torch.as_tensor(K_SMALL, device=card)
+    args = (est.refiner, est.cfg, est.mesh_tensors)
+    seq, p = [], pose0
+    with torch.inference_mode():
+        for b in bufs:
+            p = graph.track_graph_packed(*args, p, K, torch.as_tensor(b, device=card), est._diam,
+                                         (120, 160), 2)
+            seq.append(p)
+    r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
+    chain = graph.track_chain_graph(*args, pose0, K, bufs, est._diam, (120, 160), 2)
+    torch.cuda.synchronize()
+    assert raster_cuda.KERNEL.launches > r0 and attention_cuda.KERNEL.launches > a0
+    assert torch.equal(chain, torch.stack(seq))
+    assert (chain[-1] - chain[0]).abs().max().item() > 1e-4
+
+
 def _row_bound(abs_sum):
     """Atomic sums run in another order each launch: per-row bound."""
     return 1e-5 * abs_sum + 1e-30

@@ -90,7 +90,8 @@ def test_package_sources_import_no_jax():
     walked = {os.path.relpath(p, root) for p in paths}
     for sub in ("utils/checkpoint.py", "utils/metrics.py", "datasets/readers.py",
                 "cli/run_bop.py", "cli/run_demo.py", "models/loading.py",
-                "models/reference_config.py", "geometry/symmetry.py"):
+                "models/reference_config.py", "geometry/symmetry.py", "pipeline/multi.py",
+                "utils/vis.py", "cli/run_multi_demo.py"):
         assert sub in walked, sub
     _assert_no_jax_imports(paths)
 
@@ -125,6 +126,40 @@ def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
             pass
         else:
             raise AssertionError("a sidecar config.yml was read without yaml")
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("OK")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_tracking_and_demo_clis_import_without_jax_cv2_imageio():
+    """The tracking modules, the drawing helpers and both demo drivers
+    import with jax, cv2 and imageio blocked: cv2 and imageio are imported
+    where a frame is read or drawn."""
+    script = textwrap.dedent(
+        """
+        import sys
+
+        BLOCKED = ("jax", "cv2", "imageio", "foundationpose_tpu")
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import foundationpose_torch.cli.run_demo
+        import foundationpose_torch.cli.run_multi_demo
+        import foundationpose_torch.utils.vis
+        from foundationpose_torch.pipeline import MultiTracker, TrackResult, fetch_track_results
+        from foundationpose_torch.pipeline.graph import TrackChain, track_chain_graph
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("OK")

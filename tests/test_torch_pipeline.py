@@ -1,10 +1,13 @@
 """The port's crops, refiner, scorer and the whole slice (register then
 track) against foundationpose_tpu on the same inputs and weights.
 
-f32 on both sides (bf16 near-ties could flip a winner); the JAX
-estimator runs its unpacked full-frame path (register_pack,
-register_roi, track_pack and track_roi all False).
+f32 on both sides (bf16 near-ties could flip a winner); both estimators
+run their unpacked full-frame path (register_pack, register_roi,
+track_pack and track_roi all False; tests/test_torch_tracking.py holds
+the packed and windowed paths).
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -93,6 +96,7 @@ def _cfgs(mode="network"):
         scorer=TSco(net=tnet.ScoreNetCfg(base_width=4), mode=mode, input_res=RES,
                     compute_dtype="float32"),
         min_n_views=4, inplane_step_deg=120.0,
+        register_pack=False, register_roi=False, track_pack=False, track_roi=False,
     )
     return jc, tc
 
@@ -274,7 +278,9 @@ def test_load_weights_from_jax_npz(tmp_path):
     assert te.has_refiner and te.cfg.scorer.mode == "network"
     assert te.cfg.refiner.input_res == RES and te.cfg.refiner.net.base_width == 4
     assert te.cfg.scorer.compute_dtype == "float32"
-    ref = TPose(mesh=box, cfg=tc, refiner_params=_tr, scorer_params=_ts, device="cpu")
+    # the same upload path as te's defaults (packed, windowed register)
+    ref_cfg = dataclasses.replace(tc, register_pack=True, register_roi=True)
+    ref = TPose(mesh=box, cfg=ref_cfg, refiner_params=_tr, scorer_params=_ts, device="cpu")
     np.testing.assert_allclose(
         te.register(KF, *frame, iteration=1), ref.register(KF, *frame, iteration=1),
         atol=1e-6, rtol=0,
