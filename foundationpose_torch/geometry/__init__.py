@@ -8,10 +8,13 @@ from .rotations import (
     hat,
 )
 from .transforms import (
+    to_homo,
     transform_pts,
+    transform_dirs,
     normalize_rotation,
     make_pose,
     invert_pose,
+    pose_to_egocentric_delta_pose,
     egocentric_delta_pose_to_pose,
 )
 from .projection import (

@@ -10,12 +10,22 @@ from .networks import (
 from .convert import (
     params_from_jax,
     params_to_jax,
+    opt_state_from_jax,
     load_npz_params,
     load_torch_state_dict,
     detect_use_bn,
     nerf_params_from_jax,
 )
 from .loading import load_estimator_checkpoint
+from .training import (
+    TrainCfg,
+    make_optimizer,
+    trainable_tensors,
+    refine_loss_fn,
+    score_loss_fn,
+    refine_train_step,
+    score_train_step,
+)
 from .reference_config import (
     apply_reference_defaults,
     load_reference_yaml,

@@ -105,6 +105,35 @@ def params_from_jax(tree: dict, cfg) -> dict:
     return sd
 
 
+def opt_state_from_jax(opt_state, module, optimizer) -> dict:
+    """An optax Adam or AdamW state of a RefineNet / ScoreNet param tree
+    -> a state dict for `optimizer.load_state_dict`, so that a run begun
+    in the JAX package goes on in the port.
+
+    `opt_state`: the optax state (the element of its chain that carries
+    `count`, `mu` and `nu`) or a dict with those keys, leaves as numpy
+    arrays; `module` the port's net, `optimizer` its
+    models.training.make_optimizer (torch.optim.Adam / AdamW over
+    `trainable_tensors(module)`)."""
+    if isinstance(opt_state, dict):
+        adam = opt_state
+    else:
+        adam = next(s for s in opt_state if hasattr(s, "mu"))._asdict()
+    count = float(np.asarray(adam["count"]))
+    mu = params_from_jax(adam["mu"], module.cfg)
+    nu = params_from_jax(adam["nu"], module.cfg)
+    names = {id(t): n for n, t in module.state_dict(keep_vars=True).items()}
+    sd = optimizer.state_dict()
+    tensors = [t for group in optimizer.param_groups for t in group["params"]]
+    sd["state"] = {
+        i: {"step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[names[id(t)]].to(t.device),
+            "exp_avg_sq": nu[names[id(t)]].to(t.device)}
+        for i, t in enumerate(tensors)
+    }
+    return sd
+
+
 def params_to_jax(sd: dict) -> dict:
     """The inverse of params_from_jax: a RefineNet / ScoreNetMultiPair
     state_dict -> the JAX package's param tree (numpy f32), as its
@@ -115,7 +144,7 @@ def params_to_jax(sd: dict) -> dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         a = sd[name].detach().to("cpu", torch.float32).numpy()
-        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](a))
+        node[path[-1]] = np.array(_LAYOUTS[layout][1](a), order="C")  # a copy: never a view of sd
     return tree
 
 

@@ -5,7 +5,8 @@ entry point: a CUDA tensor runs the hand-written kernel of
 ops/attention_cuda.py (bf16 or f32), a CPU tensor the plain version
 `attention_core_plain`, which mirrors `_attention_core_xla`; any other
 device raises. Semantics: torch nn.MultiheadAttention's core with
-batch_first, forward only.
+batch_first. Gradients flow through `_AttentionCore`, the counterpart of
+the JAX package's `custom_vjp`: the backward recomputes the plain core.
 """
 from __future__ import annotations
 
@@ -37,8 +38,7 @@ def attention_core_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, L, D).to(qkv.dtype)
 
 
-def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Self-attention core on packed qkv (B, L, 3D) -> (B, L, D)."""
+def _forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return attention_core_plain(qkv, num_heads)
     if qkv.device.type == "cuda":
@@ -46,3 +46,39 @@ def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
         return attention_core_cuda(qkv, num_heads)
     raise RuntimeError(f"attention_core: no kernel for device {qkv.device}")
+
+
+class _AttentionCore(torch.autograd.Function):
+    """foundationpose_tpu/ops/attention.py::attention_core's custom_vjp.
+
+    The forward is the kernel on a CUDA tensor and the plain core on a
+    CPU tensor (autograd runs it with gradients off); it saves qkv. The
+    backward casts the output's cotangent to qkv's dtype and
+    differentiates `attention_core_plain` at the saved qkv, as
+    `_attention_bwd` differentiates `_attention_core_xla`: a recompute in
+    plain PyTorch on both devices, since the JAX package's backward is no
+    Pallas kernel either."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _forward(qkv, num_heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_(True)
+            out = attention_core_plain(x, ctx.num_heads)
+            (grad,) = torch.autograd.grad(out, x, g.to(qkv.dtype))
+        return grad, None
+
+
+def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Self-attention core on packed qkv (B, L, 3D) -> (B, L, D);
+    differentiable in qkv on every device (see `_AttentionCore`)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _AttentionCore.apply(qkv, num_heads)
+    return _forward(qkv, num_heads)

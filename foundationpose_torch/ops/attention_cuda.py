@@ -7,7 +7,11 @@ and is bound by reading qkv and writing the output once. bf16 runs both
 products on the tensor cores (mma.sync, two passes over the keys so that
 the weights are normalized before they are rounded); f32 runs on the
 CUDA cores, never in TF32 (see csrc/attention.cu). Reached through
-ops/attention.py::attention_core for CUDA tensors.
+ops/attention.py::attention_core for CUDA tensors. The kernel has no
+backward: a qkv that needs a gradient reaches it only through
+attention_core's autograd.Function, whose backward recomputes the plain
+core; a direct call with such a qkv raises instead of dropping the
+gradient.
 """
 from __future__ import annotations
 
@@ -31,6 +35,11 @@ def _declare(lib):
 
 def attention_core_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """qkv (B, L, 3D) bf16 or f32 on a CUDA device -> (B, L, D)."""
+    if qkv.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "attention kernel: qkv requires a gradient, which the kernel's output would not "
+            "carry; call ops.attention.attention_core, whose backward recomputes the plain core"
+        )
     if qkv.device.type != "cuda":
         raise ValueError(f"attention kernel: qkv must be on a CUDA device, got {qkv.device}")
     if qkv.dtype not in _DTYPES:

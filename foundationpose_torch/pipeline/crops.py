@@ -39,7 +39,30 @@ def make_crop_inputs(
     observation normals from xyz-map finite differences)."""
     res = int(input_res)
     tf_to_crops = compute_crop_window_tf(poses, K, crop_ratio, res, mesh_diameter)
-    rend = render_mesh(
+    rend = render_crops(mesh, poses, K, tf_to_crops, res, use_light=use_light,
+                        use_normal=use_normal, raster=raster)
+    rgb_b = warp_crop(rgb, tf_to_crops, (res, res), mode="bilinear")
+    xyz_b = warp_crop(xyz_map, tf_to_crops, (res, res), mode="nearest")
+
+    radius = mesh_radius(mesh_diameter, poses.device) if normalize_xyz else None
+
+    def center(xyz):
+        return center_xyz(xyz, poses, radius, invalid_z)
+
+    a_cols = [rend.color, center(rend.xyz)]
+    b_cols = [rgb_b, center(xyz_b)]
+    if use_normal:
+        a_cols.append(rend.normal)
+        b_cols.append(
+            warp_crop(normals_from_xyz(xyz_map), tf_to_crops, (res, res), mode="nearest")
+        )
+    return torch.cat(a_cols, dim=-1), torch.cat(b_cols, dim=-1), tf_to_crops
+
+
+def render_crops(mesh: MeshTensors, poses, K, tf_to_crops, res: int, *, use_light=True,
+                 use_normal=False, raster=None):
+    """Each pose of `mesh` rendered straight into its res x res crop."""
+    return render_mesh(
         mesh.pos,
         mesh.faces,
         poses,
@@ -54,28 +77,22 @@ def make_crop_inputs(
         get_normal=use_normal,
         cull_backfaces=bool(raster is not None and raster.cull_backfaces),
     )
-    rgb_b = warp_crop(rgb, tf_to_crops, (res, res), mode="bilinear")
-    xyz_b = warp_crop(xyz_map, tf_to_crops, (res, res), mode="nearest")
 
-    t = poses[:, :3, 3][:, None, None, :]
-    radius = torch.as_tensor(mesh_diameter, dtype=torch.float32, device=poses.device) / 2.0
 
-    def center(xyz):
-        out = xyz - t
-        if normalize_xyz:
-            out = out / radius
-            invalid = (xyz[..., 2:3] < invalid_z) | (torch.abs(out) >= 2)
-            out = torch.where(invalid, torch.zeros_like(out), out)
-        return out
+def mesh_radius(mesh_diameter, device) -> torch.Tensor:
+    return torch.as_tensor(mesh_diameter, dtype=torch.float32, device=device) / 2.0
 
-    a_cols = [rend.color, center(rend.xyz)]
-    b_cols = [rgb_b, center(xyz_b)]
-    if use_normal:
-        a_cols.append(rend.normal)
-        b_cols.append(
-            warp_crop(normals_from_xyz(xyz_map), tf_to_crops, (res, res), mode="nearest")
-        )
-    return torch.cat(a_cols, dim=-1), torch.cat(b_cols, dim=-1), tf_to_crops
+
+def center_xyz(xyz, poses, radius, invalid_z: float):
+    """(N, H, W, 3) camera-space XYZ re-centered on each pose's translation;
+    with a `radius` (normalize_xyz) divided by it and zeroed where the
+    depth is below invalid_z or a coordinate reaches 2 radii."""
+    out = xyz - poses[:, :3, 3][:, None, None, :]
+    if radius is not None:
+        out = out / radius
+        invalid = (xyz[..., 2:3] < invalid_z) | (torch.abs(out) >= 2)
+        out = torch.where(invalid, torch.zeros_like(out), out)
+    return out
 
 
 def normals_from_xyz(xyz_map: torch.Tensor) -> torch.Tensor:

@@ -91,20 +91,23 @@ def test_package_sources_import_no_jax():
     for sub in ("utils/checkpoint.py", "utils/metrics.py", "datasets/readers.py",
                 "cli/run_bop.py", "cli/run_demo.py", "models/loading.py",
                 "models/reference_config.py", "geometry/symmetry.py", "pipeline/multi.py",
-                "utils/vis.py", "cli/run_multi_demo.py"):
+                "utils/vis.py", "cli/run_multi_demo.py", "models/training.py",
+                "datasets/synthetic.py", "datasets/h5_pairs.py"):
         assert sub in walked, sub
     _assert_no_jax_imports(paths)
 
 
 def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
-    """The BOP driver, the readers and the checkpoint loaders import with
-    jax, cv2, imageio and yaml blocked: each is imported only where it is
-    used (yaml where a result file or a sidecar config.yml is read)."""
+    """The BOP driver, the readers, the checkpoint loaders and the training
+    path (train steps, synthetic batches, the H5 pair readers, train-state
+    checkpoints) import with jax, cv2, imageio, yaml and h5py blocked:
+    each is imported only where it is used (yaml where a result file or a
+    sidecar config.yml is read, h5py and imageio where an H5 file is)."""
     script = textwrap.dedent(
         """
         import sys
 
-        BLOCKED = ("jax", "cv2", "imageio", "yaml", "foundationpose_tpu")
+        BLOCKED = ("jax", "cv2", "imageio", "yaml", "h5py", "foundationpose_tpu")
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -119,6 +122,11 @@ def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
         import foundationpose_torch.datasets
         import foundationpose_torch.models.loading
         import foundationpose_torch.utils.metrics
+        import foundationpose_torch.models.training
+        import foundationpose_torch.datasets.synthetic
+        import foundationpose_torch.datasets.h5_pairs
+        from foundationpose_torch.utils.checkpoint import (
+            latest_step, load_train_state, save_train_state)
         from foundationpose_torch.models.reference_config import load_reference_yaml
         try:
             load_reference_yaml("config.yml")
