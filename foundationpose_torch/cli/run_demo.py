@@ -29,6 +29,8 @@ from collections import deque
 
 import numpy as np
 
+from ..utils.vis import write_png as _write_png
+
 
 def build_estimator(mesh, args):
     """A FoundationPose on `args.device` (default "cuda"), with each
@@ -58,18 +60,6 @@ def build_estimator(mesh, args):
         mesh=mesh, cfg=cfg, refiner_params=refiner_sd, scorer_params=scorer_sd,
         device=getattr(args, "device", "cuda"),
     )
-
-
-def _write_png(path, rgb):
-    """imageio where it is installed, else cv2 (which takes BGR)."""
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        import cv2
-
-        cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1]))
-    else:
-        imageio.imwrite(path, rgb)
 
 
 def main(argv=None):

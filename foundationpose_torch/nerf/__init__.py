@@ -33,11 +33,15 @@ def run_neural_object_field(
     tex_res: int | None = None,
     seed: int = 0,
     artifact_dir: str | None = None,
+    i_img: int = 500,
+    i_mesh: int = 500,
     device="cuda",
 ) -> tuple[TriMesh, NerfRunner]:
     """Full model-free pipeline (run_nerf.py:18-46, CV convention): scene
     normalization -> SDF field training -> mesh extraction -> texture
-    bake -> un-normalize to meters. Trains and renders on `device`."""
+    bake -> un-normalize to meters. Trains and renders on `device`; with
+    `artifact_dir` the training dumps images and meshes every i_img /
+    i_mesh steps (NerfRunner.train)."""
     check_supported(cfg)
     rgbs = np.asarray(rgbs)
     depths = np.asarray(depths).astype(np.float32)
@@ -53,7 +57,7 @@ def run_neural_object_field(
     rgbs_n, depths_n, poses_n = preprocess_data(rgbs, depths, masks, cam_in_obs, sc_factor, translation)
     runner = NerfRunner(cfg, rgbs_n, depths_n, masks, poses_n, K, build_pcd=pts_norm, seed=seed,
                         device=device)
-    runner.train(seed=seed, artifact_dir=artifact_dir)
+    runner.train(seed=seed, artifact_dir=artifact_dir, i_img=i_img, i_mesh=i_mesh)
 
     mesh = runner.extract_mesh(voxel_size=cfg.mesh_resolution)
     if len(mesh.vertices) == 0 or len(mesh.faces) == 0:

@@ -2,8 +2,8 @@
 
 A copy of foundationpose_tpu/nerf/config.py (the typed version of the
 reference's bundlesdf/config_ycbv.yml / config_linemod.yml): same field
-names and defaults. Options that the port does not implement yet raise
-NotImplementedError in nerf/runner.py when switched on."""
+names and defaults. Every option is ported; nerf/runner.py raises
+NotImplementedError only for grid_layout "quad", which is not carried."""
 from __future__ import annotations
 
 import dataclasses

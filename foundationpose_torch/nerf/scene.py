@@ -5,11 +5,14 @@ Port of foundationpose_tpu/nerf/scene.py (reference bundlesdf/tool.py:
 biggest DBSCAN cluster, normalize to [-1, 1] * 0.9, all in the OpenCV
 camera convention.
 
-sklearn's DBSCAN is replaced by scipy. With min_samples=1 every point is
-a core point, so DBSCAN's clusters are exactly the connected components
-of the graph linking points within eps of each other; they are labelled
-in order of their lowest point index, as sklearn labels them, so the
-largest cluster wins ties the same way.
+sklearn's DBSCAN is replaced by scipy (`dbscan_labels`): core points
+have at least min_samples points within eps, themselves included; the
+clusters are the connected components of the core points' eps-graph,
+labelled in order of their lowest core index, as sklearn discovers them;
+a border point (not core, a core point within eps) takes the first
+discovered of its neighbouring clusters, as sklearn's expansion leaves
+it; every other point is noise (-1). At min_samples=1 every point is a
+core point.
 """
 from __future__ import annotations
 
@@ -34,21 +37,30 @@ def _depth_to_xyz(depth, K):
 
 
 def dbscan_labels(pts: np.ndarray, eps: float, min_samples: int = 1) -> np.ndarray:
-    """DBSCAN cluster labels of (N, 3) points for min_samples=1."""
-    if min_samples != 1:
-        raise NotImplementedError(
-            "DBSCAN with min_samples > 1 is not ported (ROADMAP queue 1, model-free item)"
-        )
+    """sklearn.cluster.DBSCAN(eps, min_samples).fit(pts).labels_ for (N, 3)
+    points: cluster ids from 0 in order of discovery, -1 for noise."""
     n = len(pts)
     pairs = cKDTree(pts).query_pairs(eps, output_type="ndarray")
-    graph = coo_matrix((np.ones(len(pairs), np.int8), (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+    a, b = pairs[:, 0], pairs[:, 1]
+    core = np.bincount(pairs.ravel(), minlength=n) + 1 >= min_samples
+    both = core[a] & core[b]
+    graph = coo_matrix((np.ones(int(both.sum()), np.int8), (a[both], b[both])), shape=(n, n))
     _, comp = connected_components(graph, directed=False)
-    # relabel by the lowest point index of each component
+    # rank the core components by their lowest point index
     first = np.full(comp.max() + 1, n, np.int64)
-    np.minimum.at(first, comp, np.arange(n))
-    rank = np.empty_like(first)
-    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
-    return rank[comp]
+    np.minimum.at(first, comp[core], np.nonzero(core)[0])
+    rank = np.full_like(first, -1)
+    found = first < n
+    rank[np.nonzero(found)[0][np.argsort(first[found], kind="stable")]] = np.arange(int(found.sum()))
+    labels = np.where(core, rank[comp], -1)
+    # border points take the earliest-discovered cluster among their core neighbours
+    border = np.full(n, np.iinfo(np.int64).max)
+    for src, dst in ((a, b), (b, a)):
+        sel = core[src] & ~core[dst]
+        np.minimum.at(border, dst[sel], labels[src[sel]])
+    is_border = ~core & (border < np.iinfo(np.int64).max)
+    labels[is_border] = border[is_border]
+    return labels
 
 
 def compute_scene_bounds(K, rgbs, depths, masks, cam_in_obs, eps=0.01, min_samples=1):

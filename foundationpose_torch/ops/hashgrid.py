@@ -16,6 +16,11 @@ NeRF runner uses:
   gradient of the rolled rows is K4 (`factored_segment_add`), folded
   back per level with `torch.roll` by the same shifts.
 
+The points' gradient is differentiable again (create_graph), as the JAX
+package's custom-VJP backward is under a second `jax.grad`: its table
+term, the cotangent of the gathered corners, is added into their rows by
+K3 in both layouts ("oct": the eight corner rows, no fold).
+
 Level semantics (both layouts): scale = 2^(l*S) * base - 1, sample
 position x01*scale + 0.5, out-of-[0, 1] points give zeros and no
 gradient. The "quad" layout is not ported. Integer index arithmetic runs
@@ -188,26 +193,37 @@ def _cuda_forward(embeddings, x, cfg):
     return out, vals
 
 
-def _cuda_backward(cfg, table_size, x, vals, g, need_emb):
+def _cuda_table_grad(cfg, table_size, x, g):
+    """The table's gradient: K3 over the (point, level, corner) rows."""
     N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
-    flat, w, factors, oob = _corner_data(x, cfg)
+    flat, w, _factors, oob = _corner_data(x, cfg)
     g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C)
-    g_slots = [g_lc[:, :, ch, None] for ch in range(C)]  # broadcast over the 8 corners
-    d_emb = None
-    if need_emb:
-        idx = torch.where(oob[:, None, None], table_size, flat).to(torch.int32).reshape(-1)
-        upd = torch.stack([(w * g_slots[ch]).reshape(-1) for ch in range(C)])
-        d_emb = segment_add_planes(idx, upd, table_size)  # K3
-    ve_g = torch.zeros_like(w)
+    idx = torch.where(oob[:, None, None], table_size, flat).to(torch.int32).reshape(-1)
+    upd = torch.stack([(w * g_lc[:, :, ch, None]).reshape(-1) for ch in range(C)])
+    return segment_add_planes(idx, upd, table_size)  # K3
+
+
+def _cuda_point_grad(cfg, x, vals, g):
+    """The points' gradient from the gathered corners vals (N, L, 8, C):
+    plain tensor operations, differentiable in x, vals and g."""
+    N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
+    _flat, _w, factors, oob = _corner_data(x, cfg)
+    g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C)
+    ve_g = torch.zeros_like(factors[0])
     for ch in range(C):
-        ve_g = ve_g + vals[..., ch] * g_slots[ch]
+        ve_g = ve_g + vals[..., ch] * g_lc[:, :, ch, None]
     scale = _consts(cfg, str(x.device))["scales"][None, :, None] / 2.0
     sign = [torch.tensor([1.0 if b else -1.0 for b in _BITS[d]], device=x.device) for d in range(3)]
     others = (factors[1] * factors[2], factors[0] * factors[2], factors[0] * factors[1])
     d_x = torch.stack(
         [(ve_g * sign[d] * others[d] * scale).reshape(N, -1).sum(1) for d in range(3)], dim=-1
     )
-    return d_emb, torch.where(oob[:, None], 0.0, d_x)
+    return torch.where(oob[:, None], 0.0, d_x)
+
+
+def _cuda_corner_rows(x, cfg):
+    flat, _w, _factors, oob = _corner_data(x, cfg)
+    return flat, oob
 
 
 # ------------------------------------------------------------------- oct
@@ -252,36 +268,44 @@ def _oct_forward(embeddings, x, cfg):
     return out, vals
 
 
-def _oct_backward(cfg, table_size, x, vals, g, need_emb):
+def _oct_table_grad(cfg, table_size, x, g):
+    """The table's gradient: K4 over the base rows, folded back per level
+    by the corner shifts."""
     N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
     c = _consts(cfg, str(x.device))
     flat, fx, fy, fz, oob = _oct_corner_data(x, cfg)
     g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C)
-    g_slots = [g_lc[:, :, ch] for ch in range(C)]
     w8 = _oct_weights(fx, fy, fz)
-    d_emb = None
-    if need_emb:
-        # oob points keep an index inside their level (their updates are
-        # zero), as the JAX package does for its per-level sort.
-        idx_lv = torch.where(oob[:, None], c["offsets"][None], flat).T.to(torch.int32)
-        w_planes = torch.stack([wq.T for wq in w8])  # (8, L, N)
-        g_planes = g_lc.permute(2, 1, 0)  # (C, L, N)
-        dq = factored_segment_add(idx_lv, w_planes, g_planes, table_size)  # K4, (T, 8C)
-        res_np, sizes_np, offsets_np, _ = cfg.level_tables()
-        shifts = oct_shifts(cfg)
-        segs = []
-        for lv in range(L):
-            dql = dq[int(offsets_np[lv]) : int(offsets_np[lv] + sizes_np[lv])]
-            acc = dql[:, 0:C]
-            for q in range(1, 8):
-                acc = acc + torch.roll(dql[:, q * C : (q + 1) * C], int(shifts[lv, q]), dims=0)
-            segs.append(acc)
-        d_emb = torch.cat(segs)
+    # oob points keep an index inside their level (their updates are
+    # zero), as the JAX package does for its per-level sort.
+    idx_lv = torch.where(oob[:, None], c["offsets"][None], flat).T.to(torch.int32)
+    w_planes = torch.stack([wq.T for wq in w8])  # (8, L, N)
+    g_planes = g_lc.permute(2, 1, 0)  # (C, L, N)
+    dq = factored_segment_add(idx_lv, w_planes, g_planes, table_size)  # K4, (T, 8C)
+    _res, sizes_np, offsets_np, _ = cfg.level_tables()
+    shifts = oct_shifts(cfg)
+    segs = []
+    for lv in range(L):
+        dql = dq[int(offsets_np[lv]) : int(offsets_np[lv] + sizes_np[lv])]
+        acc = dql[:, 0:C]
+        for q in range(1, 8):
+            acc = acc + torch.roll(dql[:, q * C : (q + 1) * C], int(shifts[lv, q]), dims=0)
+        segs.append(acc)
+    return torch.cat(segs)
+
+
+def _oct_point_grad(cfg, x, vals, g):
+    """The points' gradient from the gathered bf16 corners vals
+    (N, L, 8, C): plain tensor operations, differentiable in x, vals and g."""
+    N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
+    c = _consts(cfg, str(x.device))
+    _flat, fx, fy, fz, oob = _oct_corner_data(x, cfg)
+    g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C)
     ve_g = []
     for q in range(8):
         acc = torch.zeros_like(fx)
         for ch in range(C):
-            acc = acc + vals[:, :, q, ch].to(torch.float32) * g_slots[ch]
+            acc = acc + vals[:, :, q, ch].to(torch.float32) * g_lc[:, :, ch]
         ve_g.append(acc)
     wx, wy, wz = (1.0 - fx, fx), (1.0 - fy, fy), (1.0 - fz, fz)
 
@@ -293,39 +317,99 @@ def _oct_backward(cfg, table_size, x, vals, g, need_emb):
     dfz = sum(wy[dy] * wx[dx] * (corner(1, dy, dx) - corner(0, dy, dx)) for dy in (0, 1) for dx in (0, 1))
     scale = c["scales"][None] / 2.0
     d_x = torch.stack([(dfx * scale).sum(1), (dfy * scale).sum(1), (dfz * scale).sum(1)], dim=-1)
-    return d_emb, torch.where(oob[:, None], 0.0, d_x)
+    return torch.where(oob[:, None], 0.0, d_x)
+
+
+def _oct_corner_rows(x, cfg):
+    flat, _fx, _fy, _fz, oob = _oct_corner_data(x, cfg)
+    return _oct_rows(flat, cfg), oob
 
 
 # ------------------------------------------------------------- autograd
 
+_LAYOUT_FNS = {
+    # forward, table gradient, point gradient, corner rows, corner dtype
+    "cuda": (_cuda_forward, _cuda_table_grad, _cuda_point_grad, _cuda_corner_rows, torch.float32),
+    "oct": (_oct_forward, _oct_table_grad, _oct_point_grad, _oct_corner_rows, torch.bfloat16),
+}
+
+
+def corner_table_grad(idx: torch.Tensor, upd: torch.Tensor, table_size: int) -> torch.Tensor:
+    """The table gradient of gathered corners: idx (M,) rows (table_size
+    for a dropped point), upd (C, M) f32 -> (table_size, C), K3. The
+    second-order table term reaches K3 only through this function."""
+    return segment_add_planes(idx, upd, table_size)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[rows] in `dtype`, rows (N, L, 8): the corners the point
+    gradient reads, as a function of the table. Its backward adds the
+    corners' cotangent into their rows with K3 (`corner_table_grad`),
+    dropping the points where `keep` is False. A bf16 corner's cotangent
+    arrives rounded to bf16, as in the JAX package, whose transposed
+    gather then adds in bf16; K3 adds in f32."""
+
+    @staticmethod
+    def forward(ctx, table, rows, keep, dtype):
+        ctx.save_for_backward(rows, keep)
+        ctx.table_size = table.shape[0]
+        return table[rows].to(dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_vals):
+        rows, keep = ctx.saved_tensors
+        T, C = ctx.table_size, g_vals.shape[-1]
+        idx = torch.where(keep[:, None, None], rows, T).to(torch.int32).reshape(-1)
+        upd = torch.empty((C, idx.numel()), dtype=torch.float32, device=g_vals.device)
+        upd.view(C, *g_vals.shape[:-1]).copy_(g_vals.movedim(-1, 0))  # one cast-and-transpose pass
+        return corner_table_grad(idx, upd, T), None, None, None
+
 
 class _HashGridEncode(torch.autograd.Function):
+    """The encoder. Its backward gives the table's gradient (K3 or K4, when
+    `table_grad`) and the points' gradient. Under create_graph the points'
+    gradient is itself differentiable: in the points, in the cotangent and,
+    through the corners gathered again by `_GatherRows`, in the table (the
+    second-order table term of an eikonal loss, which K3 adds). The table
+    gradient itself is not differentiated again."""
+
     @staticmethod
-    def forward(ctx, embeddings, x, cfg):
-        fwd = _oct_forward if cfg.layout == "oct" else _cuda_forward
+    def forward(ctx, embeddings, x, cfg, table_grad):
+        fwd = _LAYOUT_FNS[cfg.layout][0]
         out, vals = fwd(embeddings, x, cfg)
-        ctx.cfg = cfg
-        ctx.table_size = embeddings.shape[0]
-        ctx.save_for_backward(x, vals)
+        ctx.cfg, ctx.table_grad = cfg, table_grad
+        ctx.save_for_backward(embeddings, x, vals)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, vals = ctx.saved_tensors
-        bwd = _oct_backward if ctx.cfg.layout == "oct" else _cuda_backward
-        d_emb, d_x = bwd(
-            ctx.cfg, ctx.table_size, x, vals, g.to(torch.float32).contiguous(),
-            ctx.needs_input_grad[0],
-        )
-        return d_emb, (d_x if ctx.needs_input_grad[1] else None), None
+        embeddings, x, vals = ctx.saved_tensors
+        cfg = ctx.cfg
+        _, table_grad, point_grad, corner_rows, dtype = _LAYOUT_FNS[cfg.layout]
+        g = g.to(torch.float32).contiguous()
+        d_emb = d_x = None
+        if ctx.table_grad and ctx.needs_input_grad[0]:
+            with torch.no_grad():
+                d_emb = table_grad(cfg, embeddings.shape[0], x, g)
+        if ctx.needs_input_grad[1]:
+            if torch.is_grad_enabled() and embeddings.requires_grad:
+                rows, oob = corner_rows(x.detach(), cfg)
+                vals = _GatherRows.apply(embeddings, rows, ~oob, dtype)
+            d_x = point_grad(cfg, x, vals, g)
+        return d_emb, d_x, None, None
 
 
-def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, cfg: HashGridCfg) -> torch.Tensor:
+def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, cfg: HashGridCfg,
+                    table_grad: bool = True) -> torch.Tensor:
     """embeddings (T, C) f32, x (N, 3) in [-1, 1] -> (N, L*C) f32, channel
     order level-major. Differentiable in both inputs; the table gradient
-    runs K3 ("cuda") or K4 ("oct")."""
+    runs K3 ("cuda") or K4 ("oct"). `table_grad=False` drops this call's
+    own table gradient (and its kernel launch) while keeping the points'
+    gradient and, under create_graph, its table term: an eikonal loss
+    reads the encoder only through the points' gradient."""
     if cfg.layout not in LAYOUTS:
         raise NotImplementedError(
             f"hash-grid layout {cfg.layout!r} is not ported (ported: {', '.join(LAYOUTS)})"
         )
-    return _HashGridEncode.apply(embeddings, x, cfg)
+    return _HashGridEncode.apply(embeddings, x, cfg, table_grad)

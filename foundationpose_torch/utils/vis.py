@@ -135,3 +135,28 @@ def make_grid_image(imgs, nrow, padding=5, pad_value=255):
         x = padding + c * (W + padding)
         out[y : y + im.shape[0], x : x + im.shape[1]] = im[..., :3].astype(np.uint8)
     return out
+
+
+def write_png(path, rgb):
+    """Write an (H, W, 3) uint8 RGB image: imageio where it is installed,
+    else cv2 (which takes BGR)."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        import cv2
+
+        cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1]))
+    else:
+        imageio.imwrite(path, rgb)
+
+
+def read_rgb(path):
+    """Read a color image as (H, W, 3) uint8 RGB: imageio where it is
+    installed, else cv2 (which reads BGR)."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        import cv2
+
+        return np.ascontiguousarray(cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1])
+    return imageio.imread(path)[..., :3]

@@ -205,7 +205,41 @@ def _random_stream(card):
     return idx, torch.randn((C, M), generator=g, device=card), T
 
 
-@pytest.mark.parametrize("stream", [_random_stream, _corner_stream], ids=["random", "corners"])
+def _second_order_stream(card, layout):
+    """The (idx, upd) pair an eikonal loss's second-order table term sends
+    K3: the hash grid's points' gradient, differentiable again, of a
+    piecewise-linear head, then a loss on its norm; 32 rays x 128 samples
+    at HashGridCfg's defaults in `layout` (eight corner rows a point and
+    level in both layouts)."""
+    from foundationpose_torch.ops import hashgrid
+
+    g = torch.Generator(device=card).manual_seed(4)
+    o = torch.nn.functional.normalize(torch.randn((32, 3), generator=g, device=card), dim=1) * 1.4
+    d = torch.nn.functional.normalize(torch.rand((32, 3), generator=g, device=card) * 0.6 - 0.3 - o, dim=1)
+    t = torch.linspace(0.2, 2.6, 128, device=card) + torch.rand((32, 128), generator=g, device=card) * 0.01
+    x = (o[:, None] + d[:, None] * t[..., None]).reshape(-1, 3).requires_grad_()
+    cfg = hashgrid.HashGridCfg(layout=layout)
+    T = cfg.level_tables()[3]
+    emb = (torch.rand((T, 2), generator=g, device=card) - 0.5).requires_grad_()
+    head = torch.randn((cfg.out_dim,), generator=g, device=card)
+    grabbed = []
+    orig = hashgrid.corner_table_grad
+    hashgrid.corner_table_grad = lambda *a: grabbed.append(a) or orig(*a)
+    try:
+        sdf = torch.relu(hashgrid.hashgrid_encode(emb, x, cfg, table_grad=False) @ head).sum()
+        n, = torch.autograd.grad(sdf, x, create_graph=True)
+        ((torch.linalg.vector_norm(n, dim=-1) - 1) ** 2).sum().backward()
+    finally:
+        hashgrid.corner_table_grad = orig
+    (idx, upd, _T), = grabbed
+    assert upd.shape == (2, 32 * 128 * cfg.n_levels * 8)
+    return idx, upd, T
+
+
+@pytest.mark.parametrize("stream", [
+    _random_stream, _corner_stream,
+    lambda card: _second_order_stream(card, "oct"), lambda card: _second_order_stream(card, "cuda"),
+], ids=["random", "corners", "second_order_oct", "second_order_cuda"])
 def test_k3_matches_plain(card, stream):
     from foundationpose_torch.ops.segment_add import segment_add_planes_plain
 

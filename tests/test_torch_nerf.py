@@ -213,8 +213,10 @@ def test_dbscan_labels_match_sklearn_on_clusters():
     got = tscene.dbscan_labels(pts, 0.01)
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(got)) > 5
-    with pytest.raises(NotImplementedError, match="min_samples"):
-        tscene.dbscan_labels(pts, 0.01, min_samples=2)
+    want2 = DBSCAN(eps=0.01, min_samples=2).fit(pts).labels_
+    got2 = tscene.dbscan_labels(pts, 0.01, min_samples=2)
+    np.testing.assert_array_equal(got2, want2)
+    assert (got2 == -1).any()  # the scattered singletons are noise at min_samples 2
 
 
 def test_scene_bounds_with_stray_clusters():
@@ -311,15 +313,20 @@ def _runners(layout, **kw):
 
 
 def _jax_draws(jr, key):
-    """The draws of NerfRunner._make_train_step for `key`
-    (runner.py:529-536, :291, occupancy.py:108)."""
+    """The draws of NerfRunner._make_train_step for `key` (runner.py:529-536,
+    :291, occupancy.py:108, sample_pdf :64, subset_near_band :100): batch
+    indices, occupancy, around-depth, importance and near-band tie
+    uniforms, the last two None where their option is off."""
     cfg = jr.cfg
     k1, k2 = jax.random.split(key)
     idx = jax.random.randint(k1, (cfg.n_rand,), 0, jr.n_rays)
-    kr1, kr2, _, _ = jax.random.split(k2, 4)
+    kr1, kr2, kr3, kr4 = jax.random.split(k2, 4)
     u_occ = jax.random.uniform(jax.random.split(kr1)[1], (cfg.n_rand, cfg.candidate_mult * cfg.n_samples))
     u_depth = jax.random.uniform(kr2, (cfg.n_rand, cfg.n_samples_around_depth))
-    return k2, idx, [torch.as_tensor(_np(a)) for a in (idx, u_occ, u_depth)]
+    u_imp = jax.random.uniform(kr3, (cfg.n_rand, cfg.n_importance)) if cfg.n_importance > 0 else None
+    subsets = cfg.occ_keep_frac is not None and cfg.occ_keep_frac < 1.0
+    u_tie = jax.random.uniform(kr4, (cfg.n_rand, cfg.n_samples)) if subsets else None
+    return k2, idx, [None if a is None else torch.as_tensor(_np(a)) for a in (idx, u_occ, u_depth, u_imp, u_tie)]
 
 
 def _flat_grads(tree):
@@ -376,12 +383,14 @@ def test_train_step_matches_jax(layout, start):
 
 
 def test_unported_options_raise():
-    for kw in (dict(n_importance=4), dict(eikonal_weight=0.1), dict(depth_weight=1.0),
+    """Only the "quad" grid layout, which the port does not carry, raises;
+    every other option of NerfCfg is ported."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trun.check_supported(TCfg(grid_layout="quad"))
+    for kw in (dict(), dict(n_importance=4), dict(eikonal_weight=0.1), dict(depth_weight=1.0),
                dict(fs_rgb_weight=0.5), dict(occ_keep_frac=0.75), dict(trunc_decay_type="linear"),
-               dict(grid_layout="quad")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trun.check_supported(TCfg(**kw))
-    trun.check_supported(TCfg())
+               dict(trunc_decay_type="exp"), dict(grid_layout="cuda"), dict(dbscan_min_samples=3)):
+        trun.check_supported(TCfg(**kw))
 
 
 # ------------------------------------------------- extraction and texture

@@ -92,7 +92,7 @@ def test_package_sources_import_no_jax():
                 "cli/run_bop.py", "cli/run_demo.py", "models/loading.py",
                 "models/reference_config.py", "geometry/symmetry.py", "pipeline/multi.py",
                 "utils/vis.py", "cli/run_multi_demo.py", "models/training.py",
-                "datasets/synthetic.py", "datasets/h5_pairs.py"):
+                "datasets/synthetic.py", "datasets/h5_pairs.py", "cli/run_nerf.py"):
         assert sub in walked, sub
     _assert_no_jax_imports(paths)
 
@@ -100,7 +100,7 @@ def test_package_sources_import_no_jax():
 def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
     """The BOP driver, the readers, the checkpoint loaders and the training
     path (train steps, synthetic batches, the H5 pair readers, train-state
-    checkpoints) import with jax, cv2, imageio, yaml and h5py blocked:
+    checkpoints) and the model-free entry point import with jax, cv2, imageio, yaml and h5py blocked:
     each is imported only where it is used (yaml where a result file or a
     sidecar config.yml is read, h5py and imageio where an H5 file is)."""
     script = textwrap.dedent(
@@ -125,6 +125,7 @@ def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
         import foundationpose_torch.models.training
         import foundationpose_torch.datasets.synthetic
         import foundationpose_torch.datasets.h5_pairs
+        import foundationpose_torch.cli.run_nerf
         from foundationpose_torch.utils.checkpoint import (
             latest_step, load_train_state, save_train_state)
         from foundationpose_torch.models.reference_config import load_reference_yaml
