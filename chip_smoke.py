@@ -33,7 +33,8 @@ their records stay comparable; phase 9 runs the defaults.
    the whole order equal, poses within 1e-4), the scorer tournament
    (36 hypotheses in groups of 8, network scorer: the same rows win,
    scores within 1e-4), and 3 f32 NeRF train steps per grid layout from
-   the same parameters and pinned draws, with the NerfCfg options off and
+   the same parameters and pinned draws ("oct" and "cuda"; "quad" in phase
+   16), with the NerfCfg options off and
    with every option on (importance sampling, near-band subset, linear
    truncation annealing, depth, free-space rgb and eikonal losses; every
    aux term present, the eikonal's second-order table term nonzero on
@@ -133,7 +134,31 @@ their records stay comparable; phase 9 runs the defaults.
    CPU generator's draws) with deterministic cuDNN, then registers on a
    frame at the scene's gt: the scorer's loss drops by more than 0.15
    and the network-scored ADD-S is below 6 cm; the same recipe on the
-   card generator's draws from the same seeds is reported, not gated.
+   card generator's draws from the same seeds is reported, not gated;
+16. parallel, quad layout, tooling: (a) FoundationPose over a mesh of 2
+   shards of the one card (parallel.make_device_mesh(devices=[cuda:0] * 2))
+   against the unsharded estimator at the main path's workload in f32, the
+   network scorer spread by `spread_scorer` on the register's crops: the
+   same order and poses within 1e-4, full, funneled (fast_register) and
+   packed; K1 and K2 counted per sharded register; the full and funneled
+   registers timed in turns with the unsharded ones (two shards of one card
+   measure the split's overhead, not scaling); (b) 2 refiner and 2 scorer
+   steps of (b) above, data-parallel over 2 shards of the card against the
+   unsharded steps on the card: losses within 1e-5 relative, parameters by
+   param_agreement; 2 f32 steps of (c)'s full-width nets at batch 64 the
+   same way (losses within 1e-5, first-step gradients within 1e-3 of the
+   largest, parameters reported), then their bf16 data-parallel step timed
+   in turns with the unsharded one, with the peak memory of each, K2's
+   launches and the time of a replica's copy; (c) 3 "quad" NeRF steps of the small slice, card
+   against CPU, options off and on, then K3 on the stream of one full-width
+   "quad" step (NerfCfg defaults, 8 planes) against its plain version, timed
+   in turns with it and index_add_ (the kernels line gives them as K3's
+   `quad_*`); (d) a debug=3 register of the small slice on the card and the
+   CPU: the files exist, the canvases agree (rgb panels within 1 level,
+   depth panels within one JET step, on all but 1e-3 of the pixels: K1's
+   criterion admits edge pixels covered otherwise); (e) warp_perspective and
+   warp_perspective_batch, card against CPU; (f) a profiling.trace() of one
+   register names K1 and K2, and a stage_timer around another.
 
 Every kernel's bound is computed from this run's inputs (`bound`: the
 bytes it must move over the memory rate or its operations over the peak
@@ -1507,6 +1532,13 @@ def k3_real_phase(cuda_runner):
     calls; its distinct-row shares, the reductions K3 issues and the table
     sectors they touch, K3 against its plain version, and K3, plain,
     index_add_ and two yardsticks timed in turns on it."""
+    return k3_on_step(cuda_runner, "k3_real")
+
+
+def k3_on_step(runner, key):
+    """k3_real_phase on the one K3 stream of a train step of `runner`
+    ("cuda" layout: C = 2; "quad": the 4C = 8 planes of its quad rows);
+    results under `key`_*."""
     import torch
 
     from foundationpose_torch.ops import hashgrid
@@ -1522,46 +1554,47 @@ def k3_real_phase(cuda_runner):
 
     hashgrid.segment_add_planes = grab
     try:
-        cuda_runner.train_step(torch.Generator(device=cuda_runner.device).manual_seed(2))
+        runner.train_step(torch.Generator(device=runner.device).manual_seed(2))
     finally:
         hashgrid.segment_add_planes = orig
     if len(grabbed) != 1:
-        raise AssertionError(f"one cuda-layout step called segment_add_planes {len(grabbed)} times")
+        raise AssertionError(f"one {key} step called segment_add_planes {len(grabbed)} times")
     idx, upd, T = grabbed[0]
     M = idx.numel()
     if not (int(idx.min()) >= 0 and int(idx.max()) <= T):  # out-of-bounds points send T
         raise AssertionError("the captured stream has indices outside [0, T]")
     res = {}
     n, d = distinct_rows(idx, T)
-    res["k3_real_updates"], res["k3_real_in_range"] = M, n
-    res["k3_real_distinct_share"] = d / n
+    res[f"{key}_updates"], res[f"{key}_in_range"] = M, n
+    res[f"{key}_distinct_share"] = d / n
     for s in K3_CHUNKS:
-        res[f"k3_real_distinct_share_chunk{s}"] = distinct_rows(idx, T, s)[1] / n
+        res[f"{key}_distinct_share_chunk{s}"] = distinct_rows(idx, T, s)[1] / n
     for s in (1024, 4096):
-        res[f"k3_real_reductions_share_span{s}"] = k3_reductions(idx, T, s) / n
-    # 32-byte sectors of the (T, 2) f32 table that the step's rows touch
-    res["k3_real_table_sectors"] = distinct_rows(torch.where((idx >= 0) & (idx < T), idx // 4, -1), T)[1]
+        res[f"{key}_reductions_share_span{s}"] = k3_reductions(idx, T, s) / n
+    # 32-byte sectors of the (T, C) f32 table that the step's rows touch
+    res[f"{key}_table_sectors"] = distinct_rows(
+        torch.where((idx >= 0) & (idx < T), idx * upd.shape[0] // 8, -1), T * upd.shape[0] // 8)[1]
     out = segment_add_planes_cuda(idx, upd, T)
     want = segment_add_planes_plain(idx, upd, T)
-    res["k3_real_err"] = _row_check(f"K3 captured step M={M} C={upd.shape[0]} T={T}", out, want,
+    res[f"{key}_err"] = _row_check(f"K3 captured {key} step M={M} C={upd.shape[0]} T={T}", out, want,
                                     segment_add_planes_plain(idx, upd.abs(), T))
     del out, want
     # Yardsticks beside them: the wrapper's zeroing of the table alone, and
     # one read of the stream (two sums).
     res.update(_in_turns({
-        "k3_real_ms": lambda: segment_add_planes_cuda(idx, upd, T),
-        "k3_real_plain_ms": lambda: segment_add_planes_plain(idx, upd, T),
-        "k3_real_library_ms": lambda: torch.zeros((T + 1, upd.shape[0]), device=idx.device).index_add_(
+        f"{key}_ms": lambda: segment_add_planes_cuda(idx, upd, T),
+        f"{key}_plain_ms": lambda: segment_add_planes_plain(idx, upd, T),
+        f"{key}_library_ms": lambda: torch.zeros((T + 1, upd.shape[0]), device=idx.device).index_add_(
             0, idx, upd.T),
-        "k3_real_zero_ms": lambda: torch.zeros((T, upd.shape[0]), device=idx.device),
-        "k3_real_read_ms": lambda: (idx.sum(), upd.sum()),
+        f"{key}_zero_ms": lambda: torch.zeros((T, upd.shape[0]), device=idx.device),
+        f"{key}_read_ms": lambda: (idx.sum(), upd.sum()),
     }, reps=3))
-    res["k3_real_bound_ms"], res["k3_real_bound_by"] = bound(
+    res[f"{key}_bound_ms"], res[f"{key}_bound_by"] = bound(
         _nbytes(idx, upd) + T * upd.shape[0] * 4, upd.numel(), "f32")
     # The same with the traffic of adding into a zeroed table that does not
     # fit the L2: each touched 32-byte sector read back and written again.
-    res["k3_real_sector_bound_ms"] = bound(
-        _nbytes(idx, upd) + T * upd.shape[0] * 4 + 2 * 32 * res["k3_real_table_sectors"],
+    res[f"{key}_sector_bound_ms"] = bound(
+        _nbytes(idx, upd) + T * upd.shape[0] * 4 + 2 * 32 * res[f"{key}_table_sectors"],
         upd.numel(), "f32")[0]
     _print_times(res)
     return res
@@ -1637,68 +1670,85 @@ class _CornerGrab:
 
 
 def small_nerf_phase():
-    """A tiny f32 NerfCfg, each grid layout, with the options off and with
+    """A tiny f32 NerfCfg, "oct" and "cuda" layouts ("quad" in phase 16,
+    `nerf_slice`), with the options off and with
     every option on (SMALL_NERF_OPTIONS), 3 steps on the card and on the
     CPU plain path from the same parameters and the same pinned draws:
     losses within 1e-4 relative, step 1's gradients within 1e-4 of their
-    largest magnitude (options on, the "oct" table gradient within 1e-3 of
-    its largest entry and 1e-4 relative L2: bf16 rounding ties); options
+    largest magnitude (options on, the "oct" / "quad" table gradient within
+    1e-3 of its largest entry and 1e-4 relative L2: bf16 rounding ties); options
     on, every aux term present and the eikonal loss's second-order table
     term (K3 on the card) nonzero on both."""
-    import dataclasses
+    for options in ({}, SMALL_NERF_OPTIONS):
+        for layout in ("oct", "cuda"):
+            nerf_slice(layout, options)
 
-    import torch
 
-    from foundationpose_torch.nerf import NerfCfg
+def _small_nerf_views():
+    """The small NeRF slice's scene: a 0.2 m box, 64x64 views on the CPU."""
     from foundationpose_torch.meshio import make_box
 
     box = make_box(np.array([0.2, 0.2, 0.2]))
     box.vertex_colors = np.random.default_rng(0).integers(50, 255, (8, 3)).astype(np.uint8)
     K = np.array([[60.0, 0, 32.0], [0, 60.0, 32.0], [0, 0, 1.0]], np.float32)
-    views = _reference_views(box, (64, 64), K, "cpu")
-    for options in ({}, SMALL_NERF_OPTIONS):
-        for layout in ("oct", "cuda"):
-            cfg = NerfCfg(n_step=10, n_rand=256, n_samples=16, n_samples_around_depth=16, num_levels=6,
-                          finest_res=128, log2_hashmap_size=14, amp=False, grid_layout=layout)
-            cfg = dataclasses.replace(cfg, **options)
-            runners = {dev: _nerf_runner(cfg, K, views, dev) for dev in ("cpu", "cuda")}
-            cpu = runners["cpu"]
-            gen = torch.Generator().manual_seed(1)
-            name = f"{layout}{' options on' if options else ''}"
-            for step in range(3):
-                idx = torch.randint(0, cpu.n_rays, (cfg.n_rand,), generator=gen)
-                draws = (idx,) + cpu.draw(cfg.n_rand, gen)
-                out = {}
-                for dev, r in runners.items():
-                    with _CornerGrab() as grab:
-                        loss, aux, grads = r.loss_and_grads(*(None if d is None else d.to(r.device) for d in draws))
-                    r.apply_gradients(grads)
-                    r.global_step += 1
-                    out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()}, set(aux), grab.out_max)
-                rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-                errs = {k: (float((out["cuda"][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30)),
-                            float((out["cuda"][1][k] - g).norm() / g.norm().clamp(min=1e-30)))
-                        for k, g in out["cpu"][1].items()}
-                # With the options on, the "oct" table gradient also adds the
-                # second-order term's bf16-rounded corner cotangents: an f32
-                # cotangent an ulp apart on the two devices can round to the
-                # neighbouring bf16 value, as K4's bf16 weights can. That entry
-                # is held by the CPU tests' bound against the JAX package
-                # (1e-4 relative L2, 1e-3 of the largest entry), the rest by
-                # 1e-4 of the largest entry.
-                tie = options and layout == "oct"
-                ok = all(m < 1e-4 or (tie and k == "grid" and m < 1e-3 and l2 < 1e-4) for k, (m, l2) in errs.items())
-                gerr = max(m for m, _ in errs.values())
-                print(f"  {name} step {step + 1}: loss cpu {out['cpu'][0]:.6f} cuda {out['cuda'][0]:.6f} "
-                      f"(rel {rel:.2e}), grads max |d| / max |g| {gerr:.2e} (grid {errs['grid'][0]:.2e}, "
-                      f"relative L2 {errs['grid'][1]:.2e})"
-                      + (f", second-order table term max |.| cpu {out['cpu'][3]} cuda {out['cuda'][3]}"
-                         if options else ""))
-                if not rel < 1e-4 or (step == 0 and not ok):
-                    raise AssertionError(f"NeRF {name} step on the card disagrees with the CPU plain path")
-                if options and not all(o[2] == set(NERF_AUX) and len(o[3]) == 1 and o[3][0] > 0
-                                       for o in out.values()):
-                    raise AssertionError(f"NeRF {name}: an aux term is missing or the eikonal table term is zero")
+    return K, _reference_views(box, (64, 64), K, "cpu")
+
+
+def nerf_slice(layout, options):
+    """3 steps of the tiny f32 NerfCfg in `layout` with `options` on the
+    card and on the CPU (see small_nerf_phase). Returns the card's K3 /
+    K4 launches."""
+    import dataclasses
+
+    import torch
+
+    from foundationpose_torch.nerf import NerfCfg
+    from foundationpose_torch.ops import segment_add_cuda
+
+    K, views = _small_nerf_views()
+    launches = [segment_add_cuda.K3.launches, segment_add_cuda.K4.launches]
+    cfg = NerfCfg(n_step=10, n_rand=256, n_samples=16, n_samples_around_depth=16, num_levels=6,
+                  finest_res=128, log2_hashmap_size=14, amp=False, grid_layout=layout)
+    cfg = dataclasses.replace(cfg, **options)
+    runners = {dev: _nerf_runner(cfg, K, views, dev) for dev in ("cpu", "cuda")}
+    cpu = runners["cpu"]
+    gen = torch.Generator().manual_seed(1)
+    name = f"{layout}{' options on' if options else ''}"
+    for step in range(3):
+        idx = torch.randint(0, cpu.n_rays, (cfg.n_rand,), generator=gen)
+        draws = (idx,) + cpu.draw(cfg.n_rand, gen)
+        out = {}
+        for dev, r in runners.items():
+            with _CornerGrab() as grab:
+                loss, aux, grads = r.loss_and_grads(*(None if d is None else d.to(r.device) for d in draws))
+            r.apply_gradients(grads)
+            r.global_step += 1
+            out[dev] = (float(loss), {k: v.cpu() for k, v in grads.items()}, set(aux), grab.out_max)
+        rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        errs = {k: (float((out["cuda"][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30)),
+                    float((out["cuda"][1][k] - g).norm() / g.norm().clamp(min=1e-30)))
+                for k, g in out["cpu"][1].items()}
+        # With the options on, the "oct" / "quad" table gradient also adds
+        # the second-order term's bf16-rounded corner cotangents: an f32
+        # cotangent an ulp apart on the two devices can round to the
+        # neighbouring bf16 value, as K4's bf16 weights can. That entry
+        # is held by the CPU tests' bound against the JAX package
+        # (1e-4 relative L2, 1e-3 of the largest entry), the rest by
+        # 1e-4 of the largest entry.
+        tie = options and layout in ("oct", "quad")
+        ok = all(m < 1e-4 or (tie and k == "grid" and m < 1e-3 and l2 < 1e-4) for k, (m, l2) in errs.items())
+        gerr = max(m for m, _ in errs.values())
+        print(f"  {name} step {step + 1}: loss cpu {out['cpu'][0]:.6f} cuda {out['cuda'][0]:.6f} "
+              f"(rel {rel:.2e}), grads max |d| / max |g| {gerr:.2e} (grid {errs['grid'][0]:.2e}, "
+              f"relative L2 {errs['grid'][1]:.2e})"
+              + (f", second-order table term max |.| cpu {out['cpu'][3]} cuda {out['cuda'][3]}"
+                 if options else ""))
+        if not rel < 1e-4 or (step == 0 and not ok):
+            raise AssertionError(f"NeRF {name} step on the card disagrees with the CPU plain path")
+        if options and not all(o[2] == set(NERF_AUX) and len(o[3]) == 1 and o[3][0] > 0
+                               for o in out.values()):
+            raise AssertionError(f"NeRF {name}: an aux term is missing or the eikonal table term is zero")
+    return segment_add_cuda.K3.launches - launches[0], segment_add_cuda.K4.launches - launches[1]
 
 
 NERF_STEPS = 200
@@ -2255,10 +2305,10 @@ def _refiner_step_grads():
                              f"not finite {bad[:4]}, in-projections {rel}")
 
 
-def _train_slice(device, net0, kind, draws):
+def _train_slice(device, net0, kind, draws, mesh=None):
     """(b) f32 steps at test width on `device` from the weights `net0` and
-    the given draws, one step a draw: (losses, batches, net, the gradients
-    of each step by name)."""
+    the given draws, one step a draw (data-parallel over `mesh` if given):
+    (losses, batches, net, the gradients of each step by name)."""
     import copy
     import dataclasses
 
@@ -2279,27 +2329,25 @@ def _train_slice(device, net0, kind, draws):
     for d in draws:
         if kind == "refiner":
             b = make_refiner_batch(None, mt, K, cfg.refiner, BOX_DIAMETER, draws=to(d))
-            losses.append(training.refine_train_step(net, opt, tcfg, b))
+            losses.append(training.refine_train_step(net, opt, tcfg, b, mesh=mesh))
         else:
             b = make_scorer_batch(None, mt, K, dataclasses.replace(cfg.scorer, mode="network"),
                                   BOX_DIAMETER, n=8, frame_hw=(240, 320), draws=to(d))
-            losses.append(training.score_train_step(net, opt, tcfg, b))
+            losses.append(training.score_train_step(net, opt, tcfg, b, mesh=mesh))
         batches.append(b)
         grads.append({n: t.grad.detach().cpu() for n, t in net.state_dict(keep_vars=True).items()
                       if t.grad is not None})
     return [float(x) for x in losses], batches, net, grads
 
 
-def _train_slice_check():
-    """(b) 2 refiner and 2 scorer steps of `_train_slice` on the CPU and on
-    the card from one init (the scorer spread by `spread_scorer`) and the
-    same draws, within the bounds of tests/test_torch_training.py."""
+def _train_slice_inputs():
+    """(b)'s draws and initial nets (the scorer spread by `spread_scorer`)."""
     import dataclasses
 
     import torch
 
     from foundationpose_torch.datasets import make_scorer_batch, synthetic
-    from foundationpose_torch.models import init_refine_net, init_score_net, training
+    from foundationpose_torch.models import init_refine_net, init_score_net
     from foundationpose_torch.pipeline import make_mesh_tensors
 
     scfg = dataclasses.replace(_small_cfg().scorer, mode="network")
@@ -2312,6 +2360,16 @@ def _train_slice_check():
     b = make_scorer_batch(None, make_mesh_tensors(_box()), torch.as_tensor(K_TEST), scfg,
                           BOX_DIAMETER, n=8, frame_hw=(240, 320), draws=draws["scorer"][0])
     spread_scorer(nets0["scorer"], b["A"], b["B"])  # logits that differ beyond rounding
+    return draws, nets0
+
+
+def _train_slice_check():
+    """(b) 2 refiner and 2 scorer steps of `_train_slice` on the CPU and on
+    the card from one init (the scorer spread by `spread_scorer`) and the
+    same draws, within the bounds of tests/test_torch_training.py."""
+    from foundationpose_torch.models import training
+
+    draws, nets0 = _train_slice_inputs()
     lr = training.TrainCfg().lr
     t, ok = {}, True
     for kind, net0 in nets0.items():
@@ -2608,6 +2666,388 @@ def training_phase():
     return counts, t
 
 
+# ------------------------------------------- parallel, quad layout, tooling
+
+
+def _sharded_register_check(counts):
+    """(a) FoundationPose(device_mesh=) over 2 shards of the card against the
+    unsharded estimator at the main path's workload in f32 (the network
+    scorer spread on the register's crops, so that its order is not
+    rounding noise): the same order and poses within 1e-4, full and
+    funneled (fast_register), unpacked and packed; K1 and K2 counted per
+    register; times in turns."""
+    import dataclasses
+
+    import torch
+
+    from foundationpose_torch.geometry.projection import depth_to_xyz_map
+    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.parallel import make_device_mesh
+    from foundationpose_torch.pipeline import EstimatorCfg, FoundationPose, RasterCfg, RefinerCfg, ScorerCfg
+    from foundationpose_torch.pipeline.crops import make_crop_inputs
+
+    mesh = _bench_mesh()
+    raster = RasterCfg(cull_backfaces=True)
+    base = EstimatorCfg(refiner=RefinerCfg(raster=raster, compute_dtype="float32"),
+                        scorer=ScorerCfg(mode="network", raster=raster, compute_dtype="float32"),
+                        **UNPACKED)
+    frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
+    mesh2 = make_device_mesh(devices=["cuda:0", "cuda:0"])
+    one = _estimator(mesh, base, "cuda")
+    one.register(K_FULL, *frame, iteration=5)
+    sc = base.scorer
+    Kt, rgb_t, depth_t = one._frame(K_FULL, frame[0], frame[1])
+    with torch.no_grad():
+        a, b, _ = make_crop_inputs(one.mesh_tensors, one.poses, Kt, rgb_t, depth_to_xyz_map(depth_t, Kt),
+                                   one._diam, input_res=sc.input_res, crop_ratio=sc.crop_ratio,
+                                   normalize_xyz=sc.normalize_xyz, invalid_z=sc.xyz_invalid_z, raster=raster)
+        spread_scorer(one.scorer, a, b)
+    del a, b
+    t = {}
+    for name, cfg in (("full", base), ("funneled", base.fast_register()),
+                      ("packed", dataclasses.replace(base, register_pack=True, register_roi=True))):
+        e1 = FoundationPose(mesh=mesh, cfg=cfg, refiner_params=one.refiner, scorer_params=one.scorer,
+                            device="cuda")
+        e2 = FoundationPose(mesh=mesh, cfg=cfg, refiner_params=one.refiner, scorer_params=one.scorer,
+                            device_mesh=mesh2)
+        p1 = e1.register(K_FULL, *frame, iteration=5)
+        torch.cuda.synchronize()
+        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+        p2 = e2.register(K_FULL, *frame, iteration=5)
+        torch.cuda.synchronize()
+        k1, k2 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
+        counts["raster"] += k1
+        counts["attention"] += k2
+        same = bool(torch.equal(e1.order, e2.order))
+        d_pose = float(np.abs(p1 - p2).max())
+        d_all = float((e1.poses - e2.poses).abs().max())
+        gap = float(e1.scores[0] - e1.scores[1])
+        print(f"  (a) {name} register, 2 shards of one card against 1: {len(e1.order)} hypotheses, order "
+              f"equal {same}, pose max |d| {d_pose:.2e}, all poses {d_all:.2e}, top-2 score gap {gap:.3g}; "
+              f"K1 {k1} K2 {k2} launches a sharded register")
+        if not (same and d_pose < 1e-4 and d_all < 1e-4) or k1 < 12 or k2 < 12:
+            raise AssertionError(f"the {name} sharded register disagrees with the unsharded one")
+        if name != "packed":
+            tt = _wall_in_turns({f"register_{name}_f32_ms": lambda: e1.register(K_FULL, *frame, iteration=5),
+                                 f"register_{name}_f32_2shards_ms":
+                                     lambda: e2.register(K_FULL, *frame, iteration=5)}, 3)
+            t.update(tt)
+            t[f"register_{name}_2shards_k1_launches"] = k1
+            t[f"register_{name}_2shards_k2_launches"] = k2
+    return t, one
+
+
+def _dp_check(counts):
+    """(b) 2 refiner and 2 scorer steps of `_train_slice` data-parallel
+    over 2 shards of the card against the unsharded steps on the card,
+    from one init and the same draws: losses within 1e-5 relative,
+    parameters by param_agreement."""
+    from foundationpose_torch.models import training
+    from foundationpose_torch.ops import attention_cuda
+    from foundationpose_torch.parallel import DATA_AXIS, make_device_mesh
+
+    draws, nets0 = _train_slice_inputs()
+    mesh = make_device_mesh(axis=DATA_AXIS, devices=["cuda:0", "cuda:0"])
+    lr = training.TrainCfg().lr
+    t = {}
+    for kind, net0 in nets0.items():
+        l1, _b1, n1, g1 = _train_slice("cuda", net0, kind, draws[kind])
+        k2 = attention_cuda.KERNEL.launches
+        l2, _b2, n2, _g2 = _train_slice("cuda", net0, kind, draws[kind], mesh=mesh)
+        k2 = attention_cuda.KERNEL.launches - k2
+        counts["attention"] += k2
+        d_loss = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+        agree = param_agreement(n2.state_dict(), n1.state_dict(), g1, lr)
+        print(f"  (b) {kind}, 2 data-parallel f32 steps over 2 shards of one card against 2 unsharded: "
+              f"losses {[round(x, 6) for x in l1]}, relative |d| {d_loss:.2e} (< 1e-5); parameters: "
+              f"resolved share {agree[0]:.4f}, resolved max |d| {agree[1]:.2e}, any {agree[2]:.3f} of lr x "
+              f"steps; K2 {k2} launches")
+        if not (d_loss < 1e-5 and agreement_ok(*agree)) or k2 < 2:
+            raise AssertionError(f"the data-parallel {kind} step disagrees with the unsharded one")
+        t[f"dp_{kind}_loss_rel"] = d_loss
+    return t
+
+
+DP_STEPS = 2
+# First-step gradients of the full-width data-parallel step against the
+# unsharded one, as a share of the largest: a shard left out of the sum or
+# weighted wrong moves them by ~0.5; the rounding that the spread scorer's
+# attention amplifies reaches 7.6e-5 on an NVIDIA H100 80GB HBM3 at 700 W
+# (f32 convolutions of 32 and of 64 samples round otherwise).
+DP_FULL_GRAD_TOL = 1e-3
+
+
+def _dp_full_width(counts):
+    """(b) the training workload of phase 15 (c) (full-width nets, batch
+    64: 64 pairs, or one 64-hypothesis group) data-parallel over 2 shards
+    of the card against the unsharded step. Gated in f32: DP_STEPS steps of
+    each net from one init on the same batches, losses within 1e-5
+    relative, first-step gradients within DP_FULL_GRAD_TOL of the largest,
+    K2 launched on each shard; parameters by param_agreement, reported.
+    Measured in bf16 (TrainCfg(), the workload's): the data-parallel step
+    in turns with the unsharded one, the first step's loss against it, the
+    peak memory of each above what is resident, and a replica's copy (the
+    deepcopy that replicate_tree makes for each other card, each step).
+
+    A random full-width scorer gives the 64 hypotheses equal logits, and
+    the group's gradient through its near-uniform cross attention cancels
+    to rounding noise; `spread_scorer` at scale 30 and gain 10 (milder than
+    (a)'s 300 and 100, whose attention amplifies rounding to 2.0e-4 of the
+    largest gradient on the same card) gives it a gradient to compare."""
+    import copy
+
+    import torch
+
+    from foundationpose_torch.datasets import make_refiner_batch, make_scorer_batch
+    from foundationpose_torch.meshio import compute_mesh_diameter
+    from foundationpose_torch.models import init_refine_net, init_score_net, training
+    from foundationpose_torch.ops import attention_cuda
+    from foundationpose_torch.parallel import DATA_AXIS, make_device_mesh
+    from foundationpose_torch.pipeline import RefinerCfg, ScorerCfg, make_mesh_tensors
+
+    mesh = make_device_mesh(axis=DATA_AXIS, devices=["cuda:0", "cuda:0"])
+    bench = _bench_mesh()
+    mt = make_mesh_tensors(bench, device="cuda")
+    K = torch.as_tensor(K_FULL, device="cuda")
+    diam = torch.tensor(compute_mesh_diameter(bench.vertices), dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rcfg, scfg = RefinerCfg(), ScorerCfg(mode="network")
+    batches = {"refiner": [make_refiner_batch(gen, mt, K, rcfg, diam, n=TRAIN_N) for _ in range(DP_STEPS)],
+               "scorer": [make_scorer_batch(gen, mt, K, scfg, diam, n=TRAIN_N, frame_hw=(480, 640))
+                          for _ in range(DP_STEPS)]}
+    nets0 = {"refiner": init_refine_net(rcfg.net, torch.Generator().manual_seed(3)).cuda(),
+             "scorer": init_score_net(scfg.net, torch.Generator().manual_seed(4)).cuda()}
+    spread_scorer(nets0["scorer"], batches["scorer"][0]["A"], batches["scorer"][0]["B"], scale=30.0, gain=10.0)
+    steps = {"refiner": training.refine_train_step, "scorer": training.score_train_step}
+    k2_want = {"refiner": 2 * mesh.size, "scorer": mesh.size + 1}  # two heads a shard; trunks + the group
+    f32, bf16 = training.TrainCfg(compute_dtype="float32"), training.TrainCfg()
+    t = {}
+    for kind, net0 in nets0.items():
+        step = steps[kind]
+        runs, k2 = {}, []
+        for name, m in (("one", None), ("dp", mesh)):
+            net = copy.deepcopy(net0)
+            opt = training.make_optimizer(f32, net, "cuda")
+            losses, grads = [], []
+            for b in batches[kind]:
+                torch.cuda.synchronize()
+                launched = attention_cuda.KERNEL.launches
+                losses.append(float(step(net, opt, f32, b, mesh=m)))
+                if m is not None:
+                    k2.append(attention_cuda.KERNEL.launches - launched)
+                grads.append({n: x.grad.detach().cpu() for n, x in net.state_dict(keep_vars=True).items()
+                              if x.grad is not None})
+            runs[name] = (losses, net, grads)
+            del opt
+        (l1, n1, g1), (l2, n2, g2) = runs["one"], runs["dp"]
+        counts["attention"] += sum(k2)
+        d_loss = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+        gmax = max(float(x.abs().max()) for x in g1[0].values())
+        d_grad = max(float((g2[0][n] - x).abs().max()) for n, x in g1[0].items()) / gmax
+        agree = param_agreement(n2.state_dict(), n1.state_dict(), g1, f32.lr)
+        del runs, n1, n2, g1, g2
+
+        nets = {name: copy.deepcopy(net0) for name in ("one", "dp")}
+        opts = {name: training.make_optimizer(bf16, v, "cuda") for name, v in nets.items()}
+        b = batches[kind][0]
+        run = {"one": lambda: step(nets["one"], opts["one"], bf16, b),
+               "dp": lambda: step(nets["dp"], opts["dp"], bf16, b, mesh=mesh)}
+        lb = {name: float(fn()) for name, fn in run.items()}  # both from net0
+        d_bf16 = abs(lb["dp"] - lb["one"]) / abs(lb["one"])
+        peak = {}
+        for name, fn in run.items():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        tw = _wall_in_turns({"dp": run["dp"], "one": run["one"],
+                             "copy": lambda: copy.deepcopy(nets["dp"])}, 10)
+        print(f"  (b) full-width {kind}, {DP_STEPS} f32 steps of batch {TRAIN_N} over 2 shards of one card "
+              f"against unsharded: losses {[round(x, 6) for x in l1]}, relative |d| {d_loss:.2e} (< 1e-5); "
+              f"first-step gradients {d_grad:.2e} of the largest (< {DP_FULL_GRAD_TOL}); parameters "
+              f"(reported): resolved share {agree[0]:.4f}, resolved max |d| {agree[1]:.2e}, any "
+              f"{agree[2]:.3f} of lr x steps; K2 {k2} launches a step (want {k2_want[kind]}); bf16 step "
+              f"{tw['dp']:.2f} ms against {tw['one']:.2f} ms unsharded, first loss relative |d| {d_bf16:.2e}, "
+              f"peak above resident {peak['dp']:.3f} / {peak['one']:.3f} GB, a replica's copy "
+              f"{tw['copy']:.2f} ms")
+        if not (d_loss < 1e-5 and d_grad < DP_FULL_GRAD_TOL) or any(k != k2_want[kind] for k in k2) \
+                or not np.isfinite(d_bf16):
+            raise AssertionError(f"the full-width data-parallel {kind} step disagrees with the unsharded one")
+        t.update({f"dp_full_{kind}_loss_rel": d_loss, f"dp_full_{kind}_grad_rel": d_grad,
+                  f"dp_full_{kind}_resolved_share": agree[0],
+                  f"dp_full_{kind}_resolved_max_lr_steps": agree[1], f"dp_full_{kind}_max_lr_steps": agree[2],
+                  f"dp_full_{kind}_k2_launches_per_step": k2[0],
+                  f"dp_full_{kind}_bf16_step_ms": tw["dp"], f"dp_full_{kind}_bf16_unsharded_step_ms": tw["one"],
+                  f"dp_full_{kind}_bf16_first_loss_rel": d_bf16,
+                  f"dp_full_{kind}_bf16_peak_above_resident_gb": peak["dp"],
+                  f"dp_full_{kind}_bf16_unsharded_peak_above_resident_gb": peak["one"],
+                  f"dp_full_{kind}_replica_copy_ms": tw["copy"]})
+        del nets, opts, run
+    return t
+
+
+def _quad_check(counts, seg):
+    """(c) 3 "quad" NeRF steps of the small slice, card against CPU, options
+    off and on; then K3 on the stream of one full-width "quad" step
+    (NerfCfg defaults on the bench mesh's views): K3 against its plain
+    version, timed in turns with it and index_add_ (`k3_on_step`)."""
+    import torch
+
+    from foundationpose_torch.nerf import NerfCfg
+    from foundationpose_torch.ops import segment_add_cuda
+
+    for options in ({}, SMALL_NERF_OPTIONS):
+        k3, k4 = nerf_slice("quad", options)
+        counts["k3"] += k3
+        if k3 < 3 or k4:
+            raise AssertionError(f"quad steps launched K3 {k3} and K4 {k4} times")
+    views = _reference_views(_bench_mesh(), (480, 640), K_FULL, "cuda")
+    cfg = NerfCfg(grid_layout="quad")
+    runner = _nerf_runner(cfg, K_FULL, views, "cuda")
+    launched = segment_add_cuda.K3.launches
+    loss = float(runner.train_step(torch.Generator(device="cuda").manual_seed(1))[0])
+    k3 = segment_add_cuda.K3.launches - launched
+    counts["k3"] += k3
+    print(f"  (c) a full-width quad step: loss {loss:.6f}, K3 {k3} launch")
+    if k3 != 1 or not np.isfinite(loss):
+        raise AssertionError("the full-width quad step")
+    seg.update(k3_on_step(runner, "k3_quad"))
+    if seg["k3_quad_updates"] != cfg.n_rand * (cfg.n_samples + cfg.n_samples_around_depth) * cfg.num_levels * 2:
+        raise AssertionError(f"quad stream of {seg['k3_quad_updates']} updates")
+
+
+def _tooling_check(tmp_dir):
+    """(d) a debug=3 register of the small slice on the card and on the
+    CPU: the files exist, the canvases within 1 uint8 level; (e)
+    warp_perspective(_batch) card against CPU; (f) a profiling.trace() of
+    one full-width register names K1 and K2."""
+    import os
+
+    import torch
+
+    from foundationpose_torch.ops import warp_perspective, warp_perspective_batch
+    from foundationpose_torch.utils.vis import read_rgb
+
+    box, cfg, frame = _small_scene()
+    canv, order = {}, {}
+    for dev in ("cpu", "cuda"):
+        d = os.path.join(tmp_dir, dev)
+        est = _estimator(box, cfg, dev, head_scale=0.05)
+        est.debug, est.debug_dir = 3, d
+        est.register(K_SMALL, *frame, iteration=2)
+        files = sorted(os.listdir(d))
+        if files != ["model_tf.obj", "vis_refiner_iter0.png", "vis_refiner_iter1.png", "vis_score.png"]:
+            raise AssertionError(f"debug dumps on {dev}: {files}")
+        canv[dev] = [read_rgb(os.path.join(d, f)).astype(np.int32) for f in files[1:]]
+        order[dev] = est.order[:16].cpu().numpy()
+    # A canvas row is [rgb A | depth A | rgb B | depth B] (32 px panels,
+    # 2 px apart, 4 px margin; rows 40 px apart). A pixel is off when its
+    # rgb panel is more than 1 level away, or its depth panel more than one
+    # step of the JET colormap (4 levels). K1 against the brute path may
+    # cover an edge pixel of a rendered crop otherwise (its criterion,
+    # `render_criterion`, admits such pixels), and the canvas shows that
+    # pixel as it is: at most 1e-3 of the panel pixels may be off.
+    # vis_score's rows are the top 16 by score: near-tied depth scores may
+    # rank two hypotheses the other way on the card, so its rows are
+    # compared where both devices put the same hypothesis (the winner's
+    # first row always).
+    res = cfg.refiner.input_res
+    same = order["cpu"] == order["cuda"]
+    if not same[0]:
+        raise AssertionError("the debug register's winner differs between the card and the CPU")
+    n_off = n_px = d_max = 0
+    for name, a, b in zip(files[1:], canv["cpu"], canv["cuda"]):
+        diff = np.abs(a - b).max(axis=2)
+        if name == "vis_score.png":
+            row = (np.arange(diff.shape[0]) - 4) // (res + 8)
+            diff = diff[np.isin(row, np.flatnonzero(same))]
+        panel = (np.arange(diff.shape[1]) - 6) // (res + 2)
+        depth = ((panel == 1) | (panel == 3))[None]
+        n_off += int((diff > np.where(depth, 4, 1)).sum())
+        n_px += diff.size
+        d_max = max(d_max, int(diff.max()))
+    print(f"  (d) debug=3 register, card against CPU: {len(canv['cuda'])} canvases + model_tf.obj, top-16 "
+          f"rows in the same order {int(same.sum())} of {len(same)}; pixels off (rgb > 1 level, depth > one "
+          f"JET step) {n_off} of {n_px} (share <= 1e-3), max |d| {d_max}")
+    if n_off > 1e-3 * n_px:
+        raise AssertionError("the debug canvases on the card disagree with the CPU's")
+
+    g = torch.Generator().manual_seed(4)
+    img = torch.rand((480, 640, 3), generator=g)
+    imgs = torch.rand((4, 120, 160, 3), generator=g)
+    crops = torch.tensor([[[0.35, 0, -40.0], [0, 0.35, -30.0], [0, 0, 1]], [[1.7, 0, -2.0], [0, 1.3, 0.5], [0, 0, 1]],
+                          [[0.5, 0, 3.0], [0, 0.75, 1.0], [0, 0, 1]], [[2.0, 0, -4.0], [0, 2.0, -6.0], [0, 0, 1]]])
+    homog = crops.clone()
+    homog[:, 0, 1], homog[:, 2, 0] = 0.05, 1e-4
+    worst = {}
+    for name, fn, src in (("warp_perspective", warp_perspective, img), ("warp_perspective_batch",
+                                                                       warp_perspective_batch, imgs)):
+        for mode in ("bilinear", "nearest"):
+            for kind, M in (("crops", crops), ("homographies", homog)):
+                want = fn(src, M, (160, 160), mode=mode)
+                got = fn(src.cuda(), M.cuda(), (160, 160), mode=mode).cpu()
+                d = float((got - want).abs().max())
+                worst[(name, mode, kind)] = d
+                # Crop transforms are inverted in closed form, with the CPU's
+                # arithmetic: nearest exact, bilinear within 1e-5. A general
+                # homography is inverted by torch.linalg.inv, which rounds
+                # otherwise on the card: a source point ~1e-6 relative apart
+                # on a 640 px frame moves a bilinear sample of this noise
+                # image by up to ~1e-3.
+                exact = mode == "nearest" and kind == "crops"
+                tol = 1.0 if mode == "nearest" else (1e-5 if kind == "crops" else 1e-3)
+                if (exact and d != 0) or d > tol:
+                    raise AssertionError(f"{name} {mode} {kind} on the card: max |d| {d}")
+                if mode == "nearest" and kind == "homographies":
+                    worst[(name, mode, kind)] = float((got != want).any(-1).float().mean())
+    print("  (e) " + ", ".join(f"{n} {m} {k} {'mismatched px share' if m == 'nearest' and k == 'homographies' else 'max |d|'} "
+                               f"{v:.2e}" for (n, m, k), v in worst.items()))
+    if max(v for (n, m, k), v in worst.items() if m == "nearest" and k == "homographies") > 1e-3:
+        raise AssertionError("nearest warps of general homographies on the card disagree with the CPU's")
+
+
+def parallel_quad_tooling_phase():
+    """(a) the hypothesis-sharded register, (b) data-parallel train steps,
+    (c) the "quad" hash-grid layout and K3 on its stream, (d) debug dumps,
+    (e) warp_perspective, (f) a profiling trace. Two shards of one card
+    measure the split's overhead, not scaling. Returns (launch counts,
+    times, K3 results)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from foundationpose_torch.utils import profiling
+
+    counts = {"raster": 0, "attention": 0, "k3": 0}
+    seg = {}
+    t, one = _sharded_register_check(counts)
+    t.update(_dp_check(counts))
+    t.update(_dp_full_width(counts))
+    _quad_check(counts, seg)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        _tooling_check(tmp)
+    frame = _frame(_bench_mesh(), (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
+    with profiling.trace(out_dir, name="register_f32"):
+        one.register(K_FULL, *frame, iteration=5)
+    text = open(os.path.join(out_dir, "register_f32.json")).read()
+    named = {k: tag in text for k, tag in (("K1", "raster_kernel"), ("K2", "mha_"))}
+    print(f"  (f) profiling.trace of one register: {out_dir}/register_f32.json, "
+          f"{len(text) / 1e6:.1f} MB, names {named}")
+    if not all(named.values()):
+        raise AssertionError(f"the register's trace does not name every kernel: {named}")
+    with profiling.stage_timer("register_f32"):
+        one.register(K_FULL, *frame, iteration=5)
+    t["stage_timer_register_f32_ms"] = profiling.timing_report(reset=True)["register_f32"]["mean_ms"]
+    torch.cuda.synchronize()
+    _print_times(t)
+    _print_times({k: v for k, v in seg.items() if k.startswith("k3_quad")})
+    return counts, t, seg
+
+
 PROFILE_STEPS = 10
 
 
@@ -2719,6 +3159,9 @@ def main():
     tr_counts, t_tr = phase("training: differentiable core, slices, full width, trained nets", 420,
                             training_phase)
     t.update(t_tr)
+    pq_counts, t_pq, seg_pq = phase("parallel, quad layout, tooling", 180, parallel_quad_tooling_phase)
+    t.update(t_pq)
+    seg.update(seg_pq)
 
     def entry(name, source, replaces, launches, err, key, times):
         return {"name": name, "route": "cuda", "source": f"foundationpose_torch/csrc/{source}",
@@ -2731,22 +3174,26 @@ def main():
     kernels = [
         entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
               counts["raster"] + fn_counts["raster"] + vid_counts["raster"] + mf_counts["raster"]
-              + ep_counts["raster"] + tr_counts["raster"], k1_err, "k1", t),
+              + ep_counts["raster"] + tr_counts["raster"] + pq_counts["raster"], k1_err, "k1", t),
         entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
               counts["attention"] + fn_counts["attention"] + vid_counts["attention"]
-              + mf_counts["attention"] + ep_counts["attention"] + tr_counts["attention"],
-              max(k2_err, t["train_core_bfloat16_max_abs"]), "k2", t),
+              + mf_counts["attention"] + ep_counts["attention"] + tr_counts["attention"]
+              + pq_counts["attention"], max(k2_err, t["train_core_bfloat16_max_abs"]), "k2", t),
         # K3's times are those of the captured "cuda"-layout step's stream;
-        # the synthetic stream's (random rows, sentinels) and the eikonal
-        # loss's second-order stream's (its launches counted apart) stand
-        # beside them.
+        # the synthetic stream's (random rows, sentinels), the eikonal
+        # loss's second-order stream's (its launches counted apart) and the
+        # "quad" layout's stream's (8 planes; its launches counted apart)
+        # stand beside them.
         dict(entry("K3 segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:43",
-                   mf_counts["k3"] + ep_counts["k3"], max(seg["k3_err"], seg["k3_real_err"], seg["k3_eik_err"]),
+                   mf_counts["k3"] + ep_counts["k3"],
+                   max(seg["k3_err"], seg["k3_real_err"], seg["k3_eik_err"], seg["k3_quad_err"]),
                    "k3_real", seg),
              **{f"synthetic_{k}": seg[f"k3_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              second_order_launches=ep_counts["k3_second_order"], second_order_max_abs_err=seg["k3_eik_err"],
              **{f"second_order_{k}": seg[f"k3_eik_{k}"]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             quad_launches=pq_counts["k3"], quad_max_abs_err=seg["k3_quad_err"],
+             **{f"quad_{k}": seg[f"k3_quad_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         entry("K4 factored segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:275",
               mf_counts["k4"] + ep_counts["k4"], seg["k4_err"], "k4", seg),
     ]

@@ -20,4 +20,8 @@ def __getattr__(name):
         from .pipeline.estimator import FoundationPose
 
         return FoundationPose
+    if name == "MultiTracker":
+        from .pipeline.multi import MultiTracker
+
+        return MultiTracker
     raise AttributeError(name)

@@ -146,8 +146,7 @@ def main(argv=None):
     parser.add_argument("--refiner_ckpt", type=str, default=None)
     parser.add_argument("--scorer_ckpt", type=str, default=None)
     parser.add_argument("--score", action="store_true", help="score an existing result file")
-    # accepted so the JAX CLI's command lines run unchanged; this package
-    # writes no debug artifacts
+    # >= 2: each register's crop canvases (FoundationPose's debug dumps)
     parser.add_argument("--debug", type=int, default=0)
     parser.add_argument("--debug_dir", type=str, default="debug")
     parser.add_argument("--device", type=str, default="cuda",

@@ -38,7 +38,8 @@ def build_estimator(mesh, args):
     sidecar config.yml of a `.pth`) so the pipeline runs under the
     settings the weights were trained for (predict_pose_refine.py:102-131,
     predict_score.py:126-143); `args.fast_register` applies the
-    funneled-register preset."""
+    funneled-register preset. `args.debug` >= 2 writes the register's
+    crop canvases to `args.debug_dir` (FoundationPose's debug dumps)."""
     from ..models.loading import load_estimator_checkpoint
     from ..pipeline import EstimatorCfg, FoundationPose
 
@@ -59,6 +60,7 @@ def build_estimator(mesh, args):
     return FoundationPose(
         mesh=mesh, cfg=cfg, refiner_params=refiner_sd, scorer_params=scorer_sd,
         device=getattr(args, "device", "cuda"),
+        debug=getattr(args, "debug", 0), debug_dir=getattr(args, "debug_dir", None),
     )
 
 

@@ -6,6 +6,9 @@ from .rotations import (
     matrix_to_rotation_6d,
     euler_matrix,
     hat,
+    rot_x,
+    rot_y,
+    rot_z,
 )
 from .transforms import (
     to_homo,
@@ -18,11 +21,13 @@ from .transforms import (
     egocentric_delta_pose_to_pose,
 )
 from .projection import (
+    GLCAM_IN_CVCAM,
     project_points,
     depth_to_xyz_map,
     compute_crop_window_tf,
     invert_affine2d,
     guess_translation,
+    projection_matrix_from_intrinsics,
 )
 from .icosphere import icosphere, sample_views_icosphere
 from .clustering import cluster_poses, cluster_poses_numpy

@@ -8,6 +8,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# OpenCV camera -> OpenGL camera basis change (Utils.py:68-71), for
+# conversion tools; the renderer projects with K in OpenCV pixel space.
+GLCAM_IN_CVCAM = np.array(
+    [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float32
+)
+
 
 def project_points(pts_cam: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Pinhole-project camera-space points (..., 3) -> pixels (..., 2)."""
@@ -123,3 +129,23 @@ def guess_translation(depth: np.ndarray, mask: np.ndarray, K: np.ndarray) -> np.
     zc = np.median(depth[valid])
     center = (np.linalg.inv(K) @ np.array([uc, vc, 1.0]).reshape(3, 1)) * zc
     return center.reshape(3)
+
+
+def projection_matrix_from_intrinsics(
+    K: np.ndarray, height: int, width: int, znear: float, zfar: float
+) -> np.ndarray:
+    """OpenGL projection matrix from K, y-down convention (Utils.py:792-798).
+    The renderer does not use it; it is kept for cross-checks against
+    GL-based renderers."""
+    depth = float(zfar - znear)
+    q = -(zfar + znear) / depth
+    qn = -2 * (zfar * znear) / depth
+    return np.array(
+        [
+            [2 * K[0, 0] / width, -2 * K[0, 1] / width, (-2 * K[0, 2] + width) / width, 0],
+            [0, 2 * K[1, 1] / height, (2 * K[1, 2] - height) / height, 0],
+            [0, 0, q, qn],
+            [0, 0, -1, 0],
+        ],
+        dtype=np.float64,
+    )

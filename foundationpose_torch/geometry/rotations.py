@@ -85,15 +85,29 @@ def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
 
 
 def _rot(a, axis: int) -> torch.Tensor:
-    """Rotation by angle `a` about coordinate axis 0, 1 or 2."""
+    """Rotation by angle(s) `a` (any shape) about coordinate axis 0, 1 or
+    2 -> (..., 3, 3) f32."""
     a = torch.as_tensor(a, dtype=torch.float32)
     c, s = torch.cos(a), torch.sin(a)
-    i, j = [k for k in range(3) if k != axis]
-    R = torch.eye(3, dtype=torch.float32)
-    R[i, i], R[i, j], R[j, i], R[j, j] = c, -s, s, c
-    if axis == 1:  # y: the sine terms swap sign (right-handed)
-        R[i, j], R[j, i] = s, -s
-    return R
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    rows = {
+        0: ((o, z, z), (z, c, -s), (z, s, c)),
+        1: ((c, z, s), (z, o, z), (-s, z, c)),
+        2: ((c, -s, z), (s, c, z), (z, z, o)),
+    }[axis]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rot_x(a) -> torch.Tensor:
+    return _rot(a, 0)
+
+
+def rot_y(a) -> torch.Tensor:
+    return _rot(a, 1)
+
+
+def rot_z(a) -> torch.Tensor:
+    return _rot(a, 2)
 
 
 def euler_matrix(ax, ay, az) -> torch.Tensor:

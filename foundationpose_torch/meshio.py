@@ -1,8 +1,8 @@
 """Minimal triangle-mesh container + OBJ/PLY I/O (host-side numpy).
 
 A copy of the helpers of foundationpose_tpu/meshio.py that this package
-uses (the mesh container, loaders, OBJ export, box, voxel downsample,
-diameter, texture sampling, decimation), so that the port imports
+uses (the mesh container, loaders, OBJ and PLY export, box, voxel
+downsample, diameter, texture sampling, decimation, flat colors), so that the port imports
 nothing of the JAX package. They replace the reference's trimesh/open3d
 usage (estimater.py:44-78, Utils.py:104-130).
 """
@@ -360,6 +360,27 @@ def export_obj(mesh: TriMesh, path: str) -> None:
             fo.write(f"mtllib {os.path.basename(mtl)}\nusemtl material_0\n" + content)
 
 
+def export_ply(mesh: TriMesh, path: str) -> None:
+    """ASCII PLY with optional vertex colors (BOP model format)."""
+    has_color = mesh.vertex_colors is not None
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(mesh.vertices)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if has_color:
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write(f"element face {len(mesh.faces)}\n")
+        f.write("property list uchar int vertex_indices\nend_header\n")
+        for i, v in enumerate(mesh.vertices):
+            line = f"{v[0]:.8f} {v[1]:.8f} {v[2]:.8f}"
+            if has_color:
+                c = mesh.vertex_colors[i]
+                line += f" {int(c[0])} {int(c[1])} {int(c[2])}"
+            f.write(line + "\n")
+        for face in mesh.faces:
+            f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+
+
 def make_box(extents: np.ndarray) -> TriMesh:
     """Axis-aligned box mesh centered at origin (placeholder-object helper,
     used like the reference's trimesh box at run_ycb_video.py:87)."""
@@ -491,3 +512,15 @@ def decimate_vertex_clustering(mesh: TriMesh, voxel_size: float) -> TriMesh:
         & (faces[:, 0] != faces[:, 2])
     )
     return TriMesh(vertices=verts, faces=faces[ok], vertex_colors=colors)
+
+
+def add_pure_colored_texture(mesh: TriMesh, color=(255, 255, 255), resolution: int = 5) -> TriMesh:
+    """Uniform-color appearance for untextured CAD models (Utils.py:658-662,
+    TlessReader), as per-vertex colors: the renderer treats flat vertex
+    colors and a flat texture alike. `resolution` is the reference's
+    texture size, unused here."""
+    out = mesh.copy()
+    out.vertex_colors = np.tile(np.asarray(color, np.uint8).reshape(1, 3), (len(out.vertices), 1))
+    out.uv = None
+    out.texture = None
+    return out

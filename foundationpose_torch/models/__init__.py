@@ -6,6 +6,8 @@ from .networks import (
     ScoreNetMultiPair,
     init_refine_net,
     init_score_net,
+    apply_refine_net,
+    apply_score_net,
 )
 from .convert import (
     params_from_jax,
@@ -14,6 +16,8 @@ from .convert import (
     load_npz_params,
     load_torch_state_dict,
     detect_use_bn,
+    convert_refine_net,
+    convert_score_net,
     nerf_params_from_jax,
 )
 from .loading import load_estimator_checkpoint

@@ -152,6 +152,25 @@ def detect_use_bn(sd: dict) -> bool:
     return any("running_mean" in k for k in sd)
 
 
+def _convert(sd: dict, use_bn: bool, scorer: bool) -> dict:
+    if ("encoderA.0.net.0.weight" in sd) != scorer:
+        raise ValueError(f"the state dict holds a {'refiner' if scorer else 'scorer'}")
+    if detect_use_bn(sd) != use_bn:
+        raise ValueError(f"use_bn={use_bn}, but the state dict {'lacks' if use_bn else 'has'} BatchNorm statistics")
+    return params_to_jax(sd)
+
+
+def convert_refine_net(sd: dict, use_bn: bool) -> dict:
+    """A reference RefineNet state dict -> the JAX package's param tree
+    (its models.convert.convert_refine_net)."""
+    return _convert(sd, use_bn, scorer=False)
+
+
+def convert_score_net(sd: dict, use_bn: bool) -> dict:
+    """A reference ScoreNetMultiPair state dict -> the JAX param tree."""
+    return _convert(sd, use_bn, scorer=True)
+
+
 def load_torch_state_dict(path: str) -> dict:
     """A reference `.pth` checkpoint -> {name: CPU tensor}.
 

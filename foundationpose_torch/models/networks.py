@@ -123,8 +123,18 @@ class ScoreNetMultiPair(nn.Module):
         """A, B (L, res, res, c_in) -> score logits (L,): self-attention
         per pair, mean-pool, cross-attention over the L hypotheses of one
         comparison group."""
+        return self.group_logits(self.pooled(A, B, dtype), dtype)
+
+    def pooled(self, A, B, dtype=torch.bfloat16):
+        """The per-pair half: trunk, self-attention, mean-pool -> (L, D).
+        Pairs are independent here; a hypothesis-sharded register runs it
+        on each shard's device."""
         tokens = _tokens(self.encoderA, self.encoderAB, A, B, self.cfg.embed_dim, dtype)
-        feats = self.att(tokens, dtype).mean(dim=1)  # (L, D)
+        return self.att(tokens, dtype).mean(dim=1)
+
+    def group_logits(self, feats, dtype=torch.bfloat16):
+        """The cross-hypothesis half: pooled features (L, D) of one
+        comparison group -> logits (L,)."""
         group = self.att_cross(feats[None], dtype)  # (1, L, D)
         return self.linear(group, dtype)[0, :, 0].to(torch.float32)
 
@@ -136,3 +146,18 @@ def init_refine_net(cfg: RefineNetCfg, generator: torch.Generator) -> RefineNet:
 
 def init_score_net(cfg: ScoreNetCfg, generator: torch.Generator) -> ScoreNetMultiPair:
     return L.init_weights_(ScoreNetMultiPair(cfg), generator).eval()
+
+
+def apply_refine_net(net: RefineNet, cfg: RefineNetCfg, A, B, dtype=torch.bfloat16):
+    """The JAX package's functional form of RefineNet.forward; `cfg` must
+    be the net's own."""
+    if cfg != net.cfg:
+        raise ValueError(f"cfg {cfg} is not the net's {net.cfg}")
+    return net(A, B, dtype=dtype)
+
+
+def apply_score_net(net: ScoreNetMultiPair, cfg: ScoreNetCfg, A, B, dtype=torch.bfloat16):
+    """The JAX package's functional form of ScoreNetMultiPair.forward."""
+    if cfg != net.cfg:
+        raise ValueError(f"cfg {cfg} is not the net's {net.cfg}")
+    return net(A, B, dtype=dtype)

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from .. import torch_config  # noqa: F401
+from ..parallel.sharding import replicate_tree
 from ..torch_config import default_device
 
 
@@ -98,12 +99,78 @@ def _step(optimizer, loss_of):
     return loss.detach()
 
 
-def refine_train_step(module: nn.Module, optimizer, train_cfg: TrainCfg, batch: dict):
-    """One optimizer step on a refiner batch; returns the loss before it."""
-    return _step(optimizer, lambda: refine_loss_fn(
-        module, batch, train_cfg.loss_type, _dtype(train_cfg)))
+def _trained(module: nn.Module) -> list[torch.Tensor]:
+    """The tensors trainable_tensors hands to the optimizer, in its order,
+    as they are (not made leaves again)."""
+    out = list(module.parameters())
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            out += [m.running_mean, m.running_var]
+    return out
 
 
-def score_train_step(module: nn.Module, optimizer, train_cfg: TrainCfg, batch: dict):
-    """One optimizer step on a scorer hypothesis group ('A', 'B', 'target')."""
-    return _step(optimizer, lambda: score_loss_fn(module, batch, _dtype(train_cfg)))
+def _dp_step(module: nn.Module, optimizer, mesh, batch: dict, loss_of):
+    """One data-parallel step: the batch split along its first axis over
+    the mesh, forward and backward of each shard on its replica
+    (`loss_of(replicas, shards)` -> the full batch's loss), the gradients
+    summed onto the module's tensors (the psum), one optimizer step on
+    the module. A replica is `replicate_tree`'s: the module itself on its
+    own device, where autograd sums the shards' gradients into it, and
+    on another device a copy holding the module's current values, whose
+    gradients are added to the module's after the backward."""
+    optimizer.zero_grad(set_to_none=True)
+    reps = replicate_tree(module, mesh)
+    shards = [{} for _ in reps]
+    for k, v in batch.items():
+        for sh, part, d in zip(shards, torch.tensor_split(v, mesh.size), mesh.devices):
+            sh[k] = part.to(d)
+    loss = loss_of(reps, shards)
+    loss.backward()
+    for r in dict.fromkeys(reps):
+        if r is module:
+            continue
+        for p, a in zip(_trained(module), _trained(r)):
+            if a.grad is not None:
+                g = a.grad.to(p.device)
+                p.grad = g if p.grad is None else p.grad + g
+    optimizer.step()
+    return loss.detach()
+
+
+def refine_train_step(module: nn.Module, optimizer, train_cfg: TrainCfg, batch: dict, mesh=None):
+    """One optimizer step on a refiner batch; returns the loss before it.
+    With a `parallel.DeviceMesh`, data-parallel over it: each shard's
+    mean loss is weighted by its share of the batch, so the gradient is
+    the full batch's."""
+    dtype = _dtype(train_cfg)
+    if mesh is None:
+        return _step(optimizer, lambda: refine_loss_fn(module, batch, train_cfg.loss_type, dtype))
+    n = batch["A"].shape[0]
+    first = mesh.first
+
+    def loss_of(reps, shards):
+        return sum(refine_loss_fn(r, sh, train_cfg.loss_type, dtype).to(first) * (sh["A"].shape[0] / n)
+                   for r, sh in zip(reps, shards) if sh["A"].shape[0])
+
+    return _dp_step(module, optimizer, mesh, batch, loss_of)
+
+
+def score_train_step(module: nn.Module, optimizer, train_cfg: TrainCfg, batch: dict, mesh=None):
+    """One optimizer step on a scorer hypothesis group ('A', 'B',
+    'target'). With a mesh, data-parallel over it: the group is split,
+    each shard's trunk runs on its replica (ScoreNetMultiPair.pooled), and
+    the pooled features are gathered onto the first device with their
+    gradient for the cross-hypothesis attention over the whole group."""
+    dtype = _dtype(train_cfg)
+    if mesh is None:
+        return _step(optimizer, lambda: score_loss_fn(module, batch, dtype))
+    first = mesh.first
+
+    def loss_of(reps, shards):
+        feats = torch.cat([r.pooled(sh["A"], sh["B"], dtype).to(first)
+                           for r, sh in zip(reps, shards) if sh["A"].shape[0]])
+        logits = reps[0].group_logits(feats, dtype)
+        labels = torch.softmax(batch["target"].to(first), dim=-1)
+        return -(labels * torch.log_softmax(logits, dim=-1)).sum()
+
+    return _dp_step(module, optimizer, mesh, batch, loss_of)

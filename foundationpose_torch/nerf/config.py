@@ -2,8 +2,7 @@
 
 A copy of foundationpose_tpu/nerf/config.py (the typed version of the
 reference's bundlesdf/config_ycbv.yml / config_linemod.yml): same field
-names and defaults. Every option is ported; nerf/runner.py raises
-NotImplementedError only for grid_layout "quad", which is not carried."""
+names and defaults. Every option is ported, each grid layout included."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,7 +41,8 @@ class NerfCfg:
     finest_res: int = 512  # 256 for the linemod config
     # "oct" = eight corners at fixed row shifts of one base row
     # (z-scrambled hash, backward through K4); "cuda" = torch-ngp
-    # index-exact hashing (backward through K3); ops/hashgrid.py.
+    # index-exact hashing (backward through K3); "quad" = four (x, y)
+    # corners per z corner (backward through K3); ops/hashgrid.py.
     grid_layout: str = "oct"
 
     # SH view encoding

@@ -24,8 +24,6 @@ importance uniforms and the near-band tie jitter) so that tests can pin
 them. On a CUDA device the host runs only what the JAX package runs on the
 host: ray building, the denoise, the sample grid of the extraction,
 marching tetrahedra and the artifact files.
-
-The "quad" grid layout is not carried (ROADMAP, "Not carried").
 """
 from __future__ import annotations
 
@@ -51,12 +49,11 @@ logger = logging.getLogger(__name__)
 
 
 def check_supported(cfg: NerfCfg) -> None:
-    """Raise NotImplementedError for the one option the port does not
-    carry: the "quad" grid layout."""
+    """Raise NotImplementedError for a grid layout that neither package has
+    (every NerfCfg option is ported)."""
     if cfg.grid_layout not in LAYOUTS:
         raise NotImplementedError(
-            f"NerfCfg grid_layout {cfg.grid_layout!r} is not carried (ported: {', '.join(LAYOUTS)}; "
-            "ROADMAP, not carried)"
+            f"NerfCfg grid_layout {cfg.grid_layout!r} is unknown (layouts: {', '.join(LAYOUTS)})"
         )
 
 

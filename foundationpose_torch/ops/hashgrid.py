@@ -1,7 +1,6 @@
 """Multi-level hash-grid encoder (instant-NGP style) on torch tensors.
 
-Port of foundationpose_tpu/ops/hashgrid.py with its two layouts that the
-NeRF runner uses:
+Port of foundationpose_tpu/ops/hashgrid.py with its three layouts:
 
 * "cuda": index-exact torch-ngp semantics, eight table rows gathered per
   (point, level); the backward's table gradient is K3
@@ -14,18 +13,22 @@ NeRF runner uses:
   t[(i - off + shift_q) mod size + off], so the port gathers the eight
   corners straight from a bf16 copy of the table. The backward's
   gradient of the rolled rows is K4 (`factored_segment_add`), folded
-  back per level with `torch.roll` by the same shifts.
+  back per level with `torch.roll` by the same shifts;
+* "quad": the same index, one 4-corner row (the (x, y) corners, shifts
+  0, 1, s, s+1) per (point, level, z corner), gathered from the bf16
+  table; the table gradient is K3 on the 4C planes of those rows, folded
+  back per level by the four shifts.
 
 The points' gradient is differentiable again (create_graph), as the JAX
 package's custom-VJP backward is under a second `jax.grad`: its table
 term, the cotangent of the gathered corners, is added into their rows by
-K3 in both layouts ("oct": the eight corner rows, no fold).
+K3 in every layout ("oct" / "quad": the corner rows, no fold).
 
-Level semantics (both layouts): scale = 2^(l*S) * base - 1, sample
+Level semantics (every layout): scale = 2^(l*S) * base - 1, sample
 position x01*scale + 0.5, out-of-[0, 1] points give zeros and no
-gradient. The "quad" layout is not ported. Integer index arithmetic runs
-in int64 and reproduces the JAX package's uint32 wraparound where it
-matters (hashed level sizes are powers of two dividing 2^32).
+gradient. Integer index arithmetic runs in int64 and reproduces the JAX
+package's uint32 wraparound where it matters (hashed level sizes are
+powers of two dividing 2^32).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from .segment_add import factored_segment_add, segment_add_planes
 
 _PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
-LAYOUTS = ("oct", "cuda")
+LAYOUTS = ("oct", "cuda", "quad")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +53,8 @@ class HashGridCfg:
     base_resolution: int = 32
     desired_resolution: int = 512
     log2_hashmap_size: int = 22
-    # "cuda" (index-exact torch-ngp) or "oct" (the NeRF runner's layout);
-    # see the module docstring.
+    # "cuda" (index-exact torch-ngp), "oct" (the NeRF runner's layout) or
+    # "quad"; see the module docstring.
     layout: str = "cuda"
 
     @property
@@ -118,10 +121,19 @@ def oct_shifts(cfg: HashGridCfg) -> np.ndarray:
     return np.array(out, np.int64)
 
 
+def quad_shifts(cfg: HashGridCfg) -> np.ndarray:
+    """(L, 4) corner row shifts mod the level size, corner order
+    q = dy*2 + dx (the quad row's [00, 10, 01, 11])."""
+    res_np, sizes_np, _offsets, _total = cfg.level_tables()
+    return np.array([[d % int(sizes_np[lv]) for d in (0, 1, int(res_np[lv]) + 1, int(res_np[lv]) + 2)]
+                     for lv in range(cfg.n_levels)], np.int64)
+
+
 @functools.lru_cache(maxsize=16)
 def _consts(cfg: HashGridCfg, device: str):
     """Per-level tensors on `device`: scales (L,) f32, sizes, offsets,
-    strides, z multipliers h, dense flags and oct shifts (L, 8)."""
+    strides, z multipliers h, dense flags, oct shifts (L, 8) and quad
+    shifts (L, 4)."""
     res_np, sizes_np, offsets_np, _total = cfg.level_tables()
     strides = res_np + 1
     dense = (strides**3) <= sizes_np
@@ -138,6 +150,7 @@ def _consts(cfg: HashGridCfg, device: str):
         "hmul": t(hmul),
         "dense": t(dense, torch.bool),
         "shifts": t(oct_shifts(cfg)),
+        "quad_shifts": t(quad_shifts(cfg)),
     }
 
 
@@ -325,12 +338,121 @@ def _oct_corner_rows(x, cfg):
     return _oct_rows(flat, cfg), oob
 
 
+# ------------------------------------------------------------------ quad
+#
+# Per level the index is (x + s*y + H(z)) mod size (s = res + 1; H = s^2 z
+# dense, z * 805459861 hashed), so the four (x, y) corners of a cell at
+# one z sit at the rows base + (0, 1, s, s+1): one 4-corner row of the
+# JAX package's rolled quad table per (point, level, z corner). The port
+# gathers the four corners straight from a bf16 copy of the table, as
+# "oct" does for its eight. Slots are level-major, z corner minor: (N, 2L).
+
+
+def _quad_corner_data(x: torch.Tensor, cfg: HashGridCfg):
+    """"quad" layout: base table rows (N, 2L) int64, the fractions fx, fy
+    and the z weight wz (N, 2L), and oob (N,)."""
+    c = _consts(cfg, str(x.device))
+    pg, frac, oob = _positions(x, cfg)
+    zbit = torch.tensor([0, 1], dtype=torch.int64, device=x.device)
+    lin = (pg[:, 0] + pg[:, 1] * c["strides"])[..., None] + (pg[:, 2][..., None] + zbit) * c["hmul"][:, None]
+    flat = (lin % c["sizes"][:, None] + c["offsets"][:, None]).reshape(x.shape[0], -1)
+
+    def slots(a):  # (N, L) -> (N, 2L)
+        return a.repeat_interleave(2, dim=1)
+
+    fz = slots(frac[:, 2])
+    wz = torch.where(zbit.repeat(cfg.n_levels).bool(), fz, 1.0 - fz)
+    return flat, slots(frac[:, 0]), slots(frac[:, 1]), wz, oob
+
+
+def _quad_weights(fx, fy):
+    return [(1.0 - fx) * (1.0 - fy), fx * (1.0 - fy), (1.0 - fx) * fy, fx * fy]
+
+
+def _quad_rows(flat, cfg):
+    """(N, 2L) base rows -> (N, 2L, 4) rows of the four (x, y) corners."""
+    c = _consts(cfg, str(flat.device))
+    off = c["offsets"].repeat_interleave(2)[:, None]
+    size = c["sizes"].repeat_interleave(2)[:, None]
+    return (flat[..., None] - off + c["quad_shifts"].repeat_interleave(2, dim=0)) % size + off
+
+
+def _quad_forward(embeddings, x, cfg):
+    N, C = x.shape[0], cfg.level_dim
+    flat, fx, fy, wz, oob = _quad_corner_data(x, cfg)
+    vals = embeddings.to(torch.bfloat16)[_quad_rows(flat, cfg)]  # (N, 2L, 4, C) bf16
+    wq = _quad_weights(fx, fy)
+    outs = []
+    for ch in range(C):
+        acc = torch.zeros_like(fx)
+        for q in range(4):
+            acc = acc + wq[q] * vals[:, :, q, ch].to(torch.float32)
+        outs.append((acc * wz).reshape(N, -1, 2).sum(-1))  # the two z corners of a level
+    out = torch.stack(outs, dim=-1)
+    return torch.where(oob[:, None, None], 0.0, out).reshape(N, -1), vals
+
+
+def _quad_table_grad(cfg, table_size, x, g):
+    """The table's gradient: K3 over the (point, level, z corner) base rows
+    on the 4C planes of the quad row ((4C, M), plane q*C + c), folded back
+    per level by the corner shifts."""
+    N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
+    flat, fx, fy, wz, oob = _quad_corner_data(x, cfg)
+    g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C).repeat_interleave(2, dim=1)  # (N, 2L, C)
+    wq = _quad_weights(fx, fy)
+    idx = torch.where(oob[:, None], table_size, flat).to(torch.int32).reshape(-1)
+    upd = torch.stack([(wz * wq[q] * g_lc[..., ch]).reshape(-1) for q in range(4) for ch in range(C)])
+    dq = segment_add_planes(idx, upd, table_size)  # K3, (T, 4C)
+    _res, sizes_np, offsets_np, _ = cfg.level_tables()
+    shifts = quad_shifts(cfg)
+    segs = []
+    for lv in range(L):
+        dql = dq[int(offsets_np[lv]) : int(offsets_np[lv] + sizes_np[lv])]
+        acc = dql[:, 0:C]
+        for q in range(1, 4):
+            acc = acc + torch.roll(dql[:, q * C : (q + 1) * C], int(shifts[lv, q]), dims=0)
+        segs.append(acc)
+    return torch.cat(segs)
+
+
+def _quad_point_grad(cfg, x, vals, g):
+    """The points' gradient from the gathered bf16 corners vals
+    (N, 2L, 4, C): plain tensor operations, differentiable in x, vals and g."""
+    N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
+    c = _consts(cfg, str(x.device))
+    _flat, fx, fy, wz, oob = _quad_corner_data(x, cfg)
+    g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C).repeat_interleave(2, dim=1)
+    ve_g = []
+    for q in range(4):
+        acc = torch.zeros_like(fx)
+        for ch in range(C):
+            acc = acc + vals[:, :, q, ch].to(torch.float32) * g_lc[..., ch]
+        ve_g.append(acc)
+    wq = _quad_weights(fx, fy)
+    dfx = wz * ((1.0 - fy) * (ve_g[1] - ve_g[0]) + fy * (ve_g[3] - ve_g[2]))
+    dfy = wz * ((1.0 - fx) * (ve_g[2] - ve_g[0]) + fx * (ve_g[3] - ve_g[1]))
+    sq = torch.zeros_like(fx)
+    for q in range(4):
+        sq = sq + wq[q] * ve_g[q]
+    zsign = torch.tensor([-1.0, 1.0], device=x.device).repeat(L)
+    dfz = zsign * sq
+    scale = c["scales"].repeat_interleave(2)[None] / 2.0
+    d_x = torch.stack([(dfx * scale).sum(1), (dfy * scale).sum(1), (dfz * scale).sum(1)], dim=-1)
+    return torch.where(oob[:, None], 0.0, d_x)
+
+
+def _quad_corner_rows(x, cfg):
+    flat, _fx, _fy, _wz, oob = _quad_corner_data(x, cfg)
+    return _quad_rows(flat, cfg), oob
+
+
 # ------------------------------------------------------------- autograd
 
 _LAYOUT_FNS = {
     # forward, table gradient, point gradient, corner rows, corner dtype
     "cuda": (_cuda_forward, _cuda_table_grad, _cuda_point_grad, _cuda_corner_rows, torch.float32),
     "oct": (_oct_forward, _oct_table_grad, _oct_point_grad, _oct_corner_rows, torch.bfloat16),
+    "quad": (_quad_forward, _quad_table_grad, _quad_point_grad, _quad_corner_rows, torch.bfloat16),
 }
 
 
@@ -404,7 +526,7 @@ def hashgrid_encode(embeddings: torch.Tensor, x: torch.Tensor, cfg: HashGridCfg,
                     table_grad: bool = True) -> torch.Tensor:
     """embeddings (T, C) f32, x (N, 3) in [-1, 1] -> (N, L*C) f32, channel
     order level-major. Differentiable in both inputs; the table gradient
-    runs K3 ("cuda") or K4 ("oct"). `table_grad=False` drops this call's
+    runs K3 ("cuda", "quad") or K4 ("oct"). `table_grad=False` drops this call's
     own table gradient (and its kernel launch) while keeping the points'
     gradient and, under create_graph, its table term: an eikonal loss
     reads the encoder only through the points' gradient."""

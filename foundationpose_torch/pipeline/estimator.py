@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..torch_config import default_device
+from .. import torch_config  # noqa: F401
 from ..geometry.clustering import cluster_poses
 from ..geometry.icosphere import sample_views_icosphere
 from ..geometry.projection import guess_translation
@@ -40,14 +40,15 @@ from ..models.networks import (
     init_refine_net,
     init_score_net,
 )
+from ..parallel.sharding import batch_sharding, make_device_mesh, replicate_tree
 from .config import EstimatorCfg
 from .graph import (
     REGISTER_PACK_FOOTER,
     TRACK_PACK_FOOTER,
     pack_register_frame,
     pack_track_frame,
-    register_body,
-    register_graph_packed,
+    register_body_sharded,
+    register_graph_packed_sharded,
     track_body,
     track_graph_packed,
 )
@@ -241,11 +242,37 @@ class FoundationPose:
         refiner_params=None,
         scorer_params=None,
         device: str | torch.device = "cuda",
+        debug: int = 0,
+        debug_dir: str | None = None,
+        n_devices: int | None = None,
+        device_mesh=None,
     ):
         """`refiner_params` / `scorer_params`: a RefineNet /
         ScoreNetMultiPair module or its state_dict. `device` is where
-        every frame is computed; asking for CUDA without a card raises."""
-        self.device = default_device(device)
+        every frame is computed; asking for CUDA without a card raises.
+
+        `n_devices` > 1 splits the register's hypotheses over a 1-D device
+        mesh (`parallel.make_device_mesh(n_devices, device=device)`: cuda:0
+        to cuda:n-1, or n copies of the CPU); `device_mesh` gives the mesh
+        itself (a device may repeat), in place of `device` and
+        `n_devices`. Without either the mesh is `device` alone. The
+        refiner, the scorer and the render mesh are replicated, the
+        rotation grid is padded to a multiple of the mesh size and split;
+        each device renders, refines and runs the scorer's trunk on its
+        shard, and only the pooled scorer features are gathered, onto the
+        mesh's first device, which also tracks. `debug` >= 2 writes crop
+        canvases of each register to `debug_dir`, >= 3 also the posed mesh
+        (utils/debug_vis.py)."""
+        if device_mesh is None:
+            device_mesh = (make_device_mesh(n_devices, device=device) if n_devices and n_devices > 1
+                           else make_device_mesh(devices=[device]))
+        elif n_devices is not None:
+            raise ValueError("give n_devices or device_mesh, not both")
+        self.device_mesh = device_mesh
+        self.device = device_mesh.first
+        self.debug = debug
+        self.debug_dir = debug_dir
+        self._guess_center = None  # set by register(); read by the debug dumps
         self.cfg = cfg or EstimatorCfg()
         self.gt_pose = None
         self.pose_last: torch.Tensor | None = None
@@ -344,7 +371,8 @@ class FoundationPose:
             self.cfg.cluster_angle_deg, 99999.0, np.asarray(rot_grid), self.symmetry_tfs
         )
         n = len(rot_grid)
-        pad = (-n) % self.cfg.rot_grid_pad
+        # the hypotheses split evenly over the mesh
+        pad = (-n) % int(np.lcm(self.cfg.rot_grid_pad, self.device_mesh.size))
         if pad:
             rot_grid = np.concatenate([rot_grid, np.tile(np.eye(4)[None], (pad, 1, 1))])
         self.hyp_valid = torch.as_tensor(
@@ -352,6 +380,19 @@ class FoundationPose:
         )
         self.rot_grid = torch.as_tensor(rot_grid, dtype=torch.float32, device=self.device)
         logger.info("rotation grid: %d (+%d pad)", n, pad)
+
+    def _shards(self):
+        """The register's inputs on the mesh, made again for each register
+        so that a net changed in place, a new render mesh or a new
+        rotation grid reaches every device: per mesh device (refiner,
+        scorer, mesh tensors, diameter), and the rows of the rotation grid
+        and of its validity. A device that is the first one's gets the
+        estimator's own objects, so an unsharded register copies nothing."""
+        mesh = self.device_mesh
+        replicas = list(zip(*(replicate_tree(t, mesh) for t in (
+            self.refiner, self.scorer, self.mesh_tensors, self._diam))))
+        sh = batch_sharding(mesh)
+        return replicas, sh(self.rot_grid), sh(self.hyp_valid)
 
     def save_weights(self, refiner_path: str | None = None, scorer_path: str | None = None):
         """Save the refiner / scorer as `.npz` param trees in the JAX
@@ -501,10 +542,9 @@ class FoundationPose:
                 lambda out: pack_register_frame(rgb_w, depth_w.astype(np.float32), mask_w,
                                                 x0, y0, out=out),
             )
-            return register_graph_packed(
-                self.refiner, self.scorer, self.cfg, self.mesh_tensors, self.rot_grid,
-                self.hyp_valid, K_t, buf, self._diam, (h, w), iters,
-            )
+            replicas, rot_parts, valid_parts = self._shards()
+            return register_graph_packed_sharded(replicas, self.cfg, rot_parts, valid_parts, K_t,
+                                                 buf, (h, w), iters)
 
         if self.cfg.register_pack and depth_np.size % 8 == 0:
             roi = self._register_roi_window(K_np, depth_np, mask_np)
@@ -516,20 +556,31 @@ class FoundationPose:
         else:
             _, rgb_t, depth_t = self._frame(K_np, rgb_np, depth_np)
             mask_t = torch.as_tensor(mask_np, device=self.device)
-            out = register_body(
-                self.refiner, self.scorer, self.cfg, self.mesh_tensors, self.rot_grid,
-                self.hyp_valid, K_t, rgb_t, depth_t, mask_t, self._diam, iters,
-            )
-        order, refined, scores, _center, _n = out
+            replicas, rot_parts, valid_parts = self._shards()
+            frames = [tuple(t.to(r.device) for t in (K_t, rgb_t, depth_t, mask_t)) for r in rot_parts]
+            out = register_body_sharded(replicas, self.cfg, rot_parts, valid_parts, frames, iters)
+        order, refined, scores, center, _n = out
         self.poses = refined
         self.scores = scores
         self.order = order
         self.pose_last = refined[0]
         self.best_id = int(order[0])
         self._pose_hint = self.pose_last.cpu().numpy().astype(np.float64)
+        self._guess_center = center.cpu().numpy().astype(np.float64)
         self._chain_repair = None  # a fresh chain
         self.track_stats = {"frames": 0, "roi_recoveries": 0, "chain_repairs": 0}
-        return self._pose_hint @ self.get_tf_to_centered_mesh()
+        best_pose = self._pose_hint @ self.get_tf_to_centered_mesh()
+        if self.debug >= 2 and self.debug_dir:
+            from ..utils.debug_vis import dump_refiner_debug, dump_register_debug
+
+            dump_register_debug(self, self.debug_dir, K, rgb, depth)
+            if self.has_refiner and int(iteration) > 0:
+                dump_refiner_debug(self, self.debug_dir, K, rgb, depth, int(iteration))
+        if self.debug >= 3 and self.debug_dir:
+            from ..utils.debug_vis import dump_transformed_mesh
+
+            dump_transformed_mesh(self, self.debug_dir, best_pose)
+        return best_pose
 
     def track_one(self, rgb, depth, K, iteration=2, extra=None) -> np.ndarray:
         """Per-frame tracking: refine-only from pose_last

@@ -1,7 +1,8 @@
 """The register and track bodies: everything a frame computes on device.
 
-Port of foundationpose_tpu/pipeline/graph.py: `register_body` with its
-prune funnel, `track_body`, `device_guess_translation`, the upload wire
+Port of foundationpose_tpu/pipeline/graph.py: `register_body_sharded`
+(`register_body` with its prune funnel, over the hypothesis shards of a
+device mesh, which may hold one device), `track_body`, `device_guess_translation`, the upload wire
 formats (`pack_track_frame`, `pack_register_frame` on the host, their
 inverses on the device), the packed graphs and `track_chain_graph`.
 PyTorch runs eagerly, so each body is a plain function of tensors; no
@@ -12,6 +13,7 @@ counterpart of the JAX package's `lax.scan` over staged frames.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,7 +24,7 @@ from ..ops.depth_filters import bilateral_filter_depth, erode_depth
 from .config import EstimatorCfg
 from .mesh_tensors import MeshTensors
 from .refiner import refine_poses
-from .scorer import score_poses
+from .scorer import score_poses_sharded
 
 
 def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.Tensor):
@@ -83,62 +85,93 @@ def _filtered_xyz(depth_raw, K, cfg: EstimatorCfg):
     return depth, depth_to_xyz_map(depth, K, zfar=cfg.zfar)
 
 
-def register_body(
-    refiner_net,
-    scorer_net,
-    cfg: EstimatorCfg,
-    mesh: MeshTensors,
-    rot_grid: torch.Tensor,  # (N, 4, 4)
-    hyp_valid: torch.Tensor,  # (N,)
-    K: torch.Tensor,
-    rgb: torch.Tensor,  # (H, W, 3) f32 [0, 1]
-    depth_raw: torch.Tensor,  # (H, W) f32 meters
-    mask: torch.Tensor,  # (H, W)
-    mesh_diameter,
-    iterations: int,
-):
-    """Full registration. Returns (order, refined_sorted, scores_sorted,
-    center, n_valid).
+def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid_parts, frames,
+                          iterations: int):
+    """Full registration, the hypotheses split over devices (one shard a
+    device of a `parallel.DeviceMesh`; an unsharded estimator's mesh has
+    one). Returns (order, refined_sorted, scores_sorted, center, n_valid).
 
     With cfg.prune_after_iter set (and fewer survivors than hypotheses,
     more iterations than the prune point), the register is funneled:
     every hypothesis is refined `prune_after_iter` times and ranked by
     the depth score; the top `prune_keep` are refined for the remaining
-    iterations and scored by the configured scorer."""
-    depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
-    center, n_valid = device_guess_translation(depth, mask, K)
-    poses = rot_grid.clone()
-    poses[:, :3, 3] = center[None]
-    n_hyp = rot_grid.shape[0]
+    iterations and scored by the configured scorer.
+
+    replicas: per shard (refiner, scorer, mesh tensors, mesh diameter) on
+    its device; rot_grid_parts / hyp_valid_parts: its rows of the rotation
+    grid and their validity; frames: per shard (K, rgb, depth_raw, mask)
+    on its device. Each shard filters the frame, guesses the translation,
+    renders its crops (K1) and refines its rows (K2 in RefineNet) on its
+    device; the scorer gathers only what it must onto the first device
+    (`score_poses_sharded`). The funnel ranks every hypothesis on the
+    first device, then splits the survivors over the shards again. The
+    result lies on the first device, and is the one-shard result."""
+    first = rot_grid_parts[0].device
+    shards = []
+    for (ref, sco, mesh, diam), (K, rgb, depth_raw, mask), rot in zip(replicas, frames, rot_grid_parts):
+        depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
+        center, n_valid = device_guess_translation(depth, mask, K)
+        poses = rot.clone()
+        poses[:, :3, 3] = center[None]
+        shards.append(_Shard(ref, sco, mesh, diam, K, rgb, xyz_map, poses, center, n_valid))
+    hyp_valid = torch.cat([v.to(first) for v in hyp_valid_parts])
+    n_hyp = hyp_valid.shape[0]
     prune = (
         cfg.prune_after_iter is not None
         and iterations > cfg.prune_after_iter
         and cfg.prune_keep < n_hyp
     )
 
-    def refine(p, n):
-        return refine_poses(refiner_net, cfg.refiner, mesh, p, K, rgb, xyz_map,
-                            mesh_diameter, iterations=n)
+    def refine(parts, n):
+        return [
+            refine_poses(sh.refiner, cfg.refiner, sh.mesh, p, sh.K, sh.rgb, sh.xyz_map, sh.diam,
+                         iterations=n) if p.shape[0] else p
+            for sh, p in zip(shards, parts)
+        ]
 
-    def score(scfg, p, valid):
-        return score_poses(scorer_net, scfg, mesh, p, K, rgb, xyz_map, mesh_diameter,
-                           valid=valid)
+    def score(scfg, parts, valid):
+        return score_poses_sharded(
+            [(sh.scorer, sh.mesh, sh.K, sh.rgb, sh.xyz_map, sh.diam) for sh in shards], scfg, parts,
+            valid,
+        )
 
+    def gather(parts):
+        return torch.cat([p.to(first) for p in parts])
+
+    def split(rows):
+        return [p.to(sh.poses.device) for p, sh in zip(torch.tensor_split(rows, len(shards)), shards)]
+
+    center, n_valid = shards[0].center, shards[0].n_valid
     if not prune:
-        refined = refine(poses, iterations)
-        scores = score(cfg.scorer, refined, hyp_valid)
+        refined_parts = refine([sh.poses for sh in shards], iterations)
+        scores = score(cfg.scorer, refined_parts, hyp_valid)
+        refined = gather(refined_parts)
         # stable, as jnp.argsort: padded hypotheses all hold -inf
         order = torch.argsort(-scores, stable=True)
         return order, refined[order], scores[order], center, n_valid
 
-    refined1 = refine(poses, cfg.prune_after_iter)
-    pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1, hyp_valid)
+    refined1_parts = refine([sh.poses for sh in shards], cfg.prune_after_iter)
+    pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1_parts, hyp_valid)
     keep_idx = funnel_keep(pre, cfg.prune_keep)
-    sub_refined = refine(refined1[keep_idx], iterations - cfg.prune_after_iter)
-    sub_scores = score(cfg.scorer, sub_refined, hyp_valid[keep_idx])
+    refined1 = gather(refined1_parts)
+    sub_refined = gather(refine(split(refined1[keep_idx]), iterations - cfg.prune_after_iter))
+    sub_scores = score(cfg.scorer, split(sub_refined), hyp_valid[keep_idx])
     refined = refined1.index_copy(0, keep_idx, sub_refined)
     order, scores = funnel_order(pre, sub_scores, keep_idx, hyp_valid)
     return order, refined[order], scores[order], center, n_valid
+
+
+class _Shard(NamedTuple):
+    refiner: object
+    scorer: object
+    mesh: MeshTensors
+    diam: object
+    K: torch.Tensor
+    rgb: torch.Tensor
+    xyz_map: torch.Tensor
+    poses: torch.Tensor  # its rows of the rotation grid at the translation guess
+    center: torch.Tensor
+    n_valid: torch.Tensor
 
 
 def funnel_keep(pre: torch.Tensor, keep: int) -> torch.Tensor:
@@ -285,15 +318,20 @@ def shift_principal_point(K: torch.Tensor, x0, y0) -> torch.Tensor:
     return K - shift
 
 
-def register_graph_packed(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid,
-                          K, buf, mesh_diameter, hw, iterations):
-    """register_body on a pack_register_frame buffer (flat uint8 on the
-    device): unpack, shift K's principal point by the packed (x0, y0),
-    register."""
-    rgb, depth_raw, mask, x0, y0 = unpack_register_frame(buf, hw)
-    return register_body(refiner_net, scorer_net, cfg, mesh, rot_grid, hyp_valid,
-                         shift_principal_point(K, x0, y0), rgb, depth_raw, mask,
-                         mesh_diameter, iterations)
+def register_graph_packed_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid_parts, K,
+                                  buf, hw, iterations):
+    """register_body_sharded on a pack_register_frame buffer: the packed
+    bytes are copied to each shard's device (once a device) and unpacked
+    there."""
+    per_device = {}
+    frames = []
+    for rot in rot_grid_parts:
+        d = rot.device
+        if d not in per_device:
+            rgb, depth_raw, mask, x0, y0 = unpack_register_frame(buf.to(d), hw)
+            per_device[d] = (shift_principal_point(K.to(d), x0, y0), rgb, depth_raw, mask)
+        frames.append(per_device[d])
+    return register_body_sharded(replicas, cfg, rot_grid_parts, hyp_valid_parts, frames, iterations)
 
 
 def track_graph_packed(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,

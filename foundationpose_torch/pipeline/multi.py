@@ -246,7 +246,9 @@ class MultiTracker:
                         cfg: EstimatorCfg | None = None) -> "MultiTracker":
         """A tracker from registered single-object estimators, reusing each
         one's render mesh and current pose, and the first one's refiner
-        and device."""
+        and device. A hypothesis-sharded estimator (n_devices > 1) keeps
+        its refiner, render mesh and pose on its mesh's first device, so
+        the tracker runs there: the JAX package's unshard."""
         if not estimators:
             raise ValueError("need at least one estimator")
         first = estimators[0]

@@ -8,7 +8,9 @@ bf16 halves) and against the JAX package's off-TPU fallbacks within 1e-5.
 K3's kernel cannot run here: a torch replay of its schedule (spans of
 consecutive updates, runs of one row summed per lane entry, one addition
 per run) is held against the Pallas kernel instead. chip_smoke.py is imported from the repository root
-for its distinct-row counter.
+for its distinct-row counter. The "quad" layout: its rolled table's rows,
+and its table gradient (K3 on 4C = 8 planes, then the roll fold) against
+the JAX backward with the Pallas K3 in interpret mode.
 """
 import numpy as np
 import jax
@@ -318,8 +320,11 @@ def test_encode_vjp_matches_jax(layout, n_levels, log2):
 
 
 def test_encode_rejects_unported_layout():
-    with pytest.raises(NotImplementedError, match="quad"):
-        thg.hashgrid_encode(torch.zeros(8, 2), torch.zeros(1, 3), thg.HashGridCfg(layout="quad"))
+    """Every layout of the JAX package is ported ("quad" included); an
+    unknown one raises."""
+    assert set(thg.LAYOUTS) == {"oct", "cuda", "quad"}
+    with pytest.raises(NotImplementedError, match="hex"):
+        thg.hashgrid_encode(torch.zeros(8, 2), torch.zeros(1, 3), thg.HashGridCfg(layout="hex"))
 
 
 def test_init_hashgrid_range():
@@ -327,3 +332,68 @@ def test_init_hashgrid_range():
     t = thg.init_hashgrid(cfg, torch.Generator().manual_seed(0))
     assert t.shape == (cfg.level_tables()[3], 2) and t.dtype == torch.float32
     assert t.abs().max() <= 1e-4 and t.std() > 3e-5
+
+
+# ------------------------------------------------------------------ quad
+
+
+def test_quad_shifts_match_the_rolled_table():
+    """Row i of the JAX package's rolled quad table holds the four (x, y)
+    corners at the port's quad_shifts: gathering them from the bf16 table
+    is bit-equal to build_quad_table."""
+    jcfg, tcfg = _cfgs("quad", 5, 11)
+    emb, _x, _g = _inputs(jcfg)
+    quad = np.asarray(jhg.build_quad_table(jnp.asarray(emb), jcfg).astype(jnp.float32))
+    _res, sizes, offsets, T = tcfg.level_tables()
+    rows = np.arange(T)
+    lv = np.searchsorted(offsets, rows, side="right") - 1
+    shifts = thg.quad_shifts(tcfg)
+    emb16 = torch.as_tensor(emb).to(torch.bfloat16).float().numpy()
+    for q in range(4):
+        src = (rows - offsets[lv] + shifts[lv, q]) % sizes[lv] + offsets[lv]
+        np.testing.assert_array_equal(quad[:, 2 * q : 2 * q + 2], emb16[src])
+
+
+@pytest.mark.parametrize("n_levels,log2", GRID_CASES)
+def test_quad_table_grad_matches_pallas_interpret(n_levels, log2, monkeypatch):
+    """The "quad" table gradient (K3's plain version on the (idx, (4C, M))
+    stream, then the roll fold) against _qencode_bwd_impl with the Pallas
+    K3 in interpret mode: each entry within 2^-15 (+ the fold's f32
+    rounding, 2^-21) of the sum of |update| of the four rows folded into
+    it. One K3 call on 4C = 8 planes."""
+    import functools
+
+    jcfg, tcfg = _cfgs("quad", n_levels, log2)
+    emb, x, g = _inputs(jcfg, seed=2)
+    T = tcfg.level_tables()[3]
+    _out, planes = jhg._qencode_fwd_res(jnp.asarray(emb), jnp.asarray(x), jcfg)
+    monkeypatch.setattr(jps, "sorted_segment_add_planes",
+                        functools.partial(jps.sorted_segment_add_planes, interpret=True))
+    # a fresh jit of the body, so that it is traced with the interpret-mode K3
+    # and compiled as the package compiles it (the positions' fused rounding)
+    bwd = jax.jit(jhg._qencode_bwd_impl.__wrapped__, static_argnums=(0, 1))
+    de_j, _dx = bwd(jcfg, T, jnp.asarray(x), planes, jnp.asarray(g))
+    monkeypatch.undo()
+    calls = []
+    k3 = thg.segment_add_planes
+
+    def grab(idx, upd, table_size):
+        calls.append((idx.numpy().copy(), upd.numpy().copy()))
+        return k3(idx, upd, table_size)
+
+    monkeypatch.setattr(thg, "segment_add_planes", grab)
+    e = torch.tensor(emb, requires_grad=True)
+    thg.hashgrid_encode(e, torch.as_tensor(x), tcfg).backward(torch.as_tensor(g))
+    assert len(calls) == 1 and calls[0][1].shape == (8, 4 * len(x) * n_levels * 2 // 4)
+    idx, upd = calls[0]
+    keep = idx < T
+    abs_rows = np.zeros((T, 8))
+    np.add.at(abs_rows, idx[keep], np.abs(upd[:, keep].T.astype(np.float64)))
+    _res, sizes, offsets, _ = tcfg.level_tables()
+    shifts = thg.quad_shifts(tcfg)
+    folded = np.concatenate([
+        sum(np.roll(abs_rows[o : o + s, 2 * q : 2 * q + 2], int(shifts[lv, q]), axis=0) for q in range(4))
+        for lv, (o, s) in enumerate(zip(offsets, sizes))])
+    d = np.abs(e.grad.numpy() - np.asarray(de_j))
+    assert (d <= (2.0**-15 + 2.0**-21) * folded + 1e-30).all(), (d / np.maximum(folded, 1e-30)).max()
+    assert np.abs(np.asarray(de_j)).max() > 0

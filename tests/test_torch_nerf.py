@@ -334,7 +334,7 @@ def _flat_grads(tree):
     return {k: v.numpy() for k, v in sd.items()}
 
 
-@pytest.mark.parametrize("layout", ["oct", "cuda"])
+@pytest.mark.parametrize("layout", ["oct", "cuda", "quad"])
 @pytest.mark.parametrize("start", ["fresh", "after_3_steps"])
 def test_train_step_matches_jax(layout, start):
     jr, tr = _runners(layout)
@@ -383,13 +383,14 @@ def test_train_step_matches_jax(layout, start):
 
 
 def test_unported_options_raise():
-    """Only the "quad" grid layout, which the port does not carry, raises;
-    every other option of NerfCfg is ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.check_supported(TCfg(grid_layout="quad"))
+    """Every option of NerfCfg is ported, the "quad" grid layout included;
+    only a layout neither package has raises."""
+    with pytest.raises(NotImplementedError, match="hex"):
+        trun.check_supported(TCfg(grid_layout="hex"))
     for kw in (dict(), dict(n_importance=4), dict(eikonal_weight=0.1), dict(depth_weight=1.0),
                dict(fs_rgb_weight=0.5), dict(occ_keep_frac=0.75), dict(trunc_decay_type="linear"),
-               dict(trunc_decay_type="exp"), dict(grid_layout="cuda"), dict(dbscan_min_samples=3)):
+               dict(trunc_decay_type="exp"), dict(grid_layout="cuda"), dict(grid_layout="quad"),
+               dict(dbscan_min_samples=3)):
         trun.check_supported(TCfg(**kw))
 
 

@@ -1,15 +1,16 @@
 """Every NerfCfg option of the port's model-free path against
 foundationpose_tpu.nerf on the same numpy inputs: the importance sampler,
 the near-band subset, the annealed truncation, one train step per option
-and with every option on in both grid layouts, the eikonal loss's
+and with every option on in each grid layout ("oct", "cuda", "quad"), the eikonal loss's
 second-order hash-grid term, the encoder's gradient of a gradient,
 render_frame, DBSCAN, checkpoints and resume, artifact dumps and the
 metric sink. JAX runs on the CPU; the port's tensors lie on the CPU, so
 K3 / K4 run their plain versions.
 
-The "oct" layout's second-order table term: the JAX package adds the
-bf16-rounded corner cotangents in bf16 (its transposed gather, then the
-eight rolled corner planes summed from the last to the first); the port
+The "oct" and "quad" layouts' second-order table term: the JAX package
+adds the bf16-rounded corner cotangents in bf16 (its transposed gather,
+then the rolled corner planes summed: "oct" from the last to the first,
+"quad" the unrolled plane first, then from the last down); the port
 adds the same bf16-rounded cotangents in f32 (K3). `_jax_bf16_term`
 replays the JAX package's order and rounding on the port's own stream and
 is bit-equal to it; the f32 sum stays within the bf16 accumulation bound
@@ -113,21 +114,31 @@ def _bf16(a):
     return torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
 
 
+def _corners(cfg):
+    """(corners a gathered row holds, their (L, corners) row shifts, the
+    order in which XLA adds the rolled corner planes) of the bf16 layouts.
+    The quad table's first block is the table itself, not a roll of it:
+    XLA adds it first, then the rolled blocks from the last down."""
+    if cfg.layout == "oct":
+        return 8, thash.oct_shifts(cfg), list(range(7, -1, -1))
+    return 4, thash.quad_shifts(cfg), [0, 3, 2, 1]
+
+
 def _jax_bf16_term(idx, upd, cfg):
-    """The JAX package's "oct" second-order table term, replayed on the
-    port's K3 stream (idx (M,), upd (C, M) of (point, level, corner) rows in
-    order): per oct row (the corner-0 row) and corner, the updates added in
-    bf16 in stream order; then per level the eight rolled corner planes
-    added in bf16 from corner 7 down to corner 0."""
+    """The JAX package's "oct" / "quad" second-order table term, replayed
+    on the port's K3 stream (idx (M,), upd (C, M) of (point, slot, corner)
+    rows in order): per rolled-table row (the corner-0 row) and corner, the
+    updates added in bf16 in stream order; then per level the rolled
+    corner planes added in bf16 in XLA's order (`_corners`)."""
     res, sizes, offsets, T = cfg.level_tables()
     C = upd.shape[0]
-    rows = idx.reshape(-1, cfg.n_levels, 8)
-    u = upd.T.reshape(-1, cfg.n_levels, 8, C)
-    base = rows[:, :, 0].reshape(-1)
-    u = u.reshape(-1, 8, C)
+    nc, shifts, order_q = _corners(cfg)
+    rows = idx.reshape(-1, nc)
+    base = rows[:, 0]
+    u = upd.T.reshape(-1, nc, C)
     keep = base < T
     base, u = base[keep], u[keep]
-    planes = np.zeros((T, 8, C), np.float32)
+    planes = np.zeros((T, nc, C), np.float32)
     # the k-th update of each base row in the k-th pass: sequential per row
     order = np.argsort(base, kind="stable")
     b_sorted = base[order]
@@ -137,32 +148,31 @@ def _jax_bf16_term(idx, upd, cfg):
     for k in range(int(rank.max()) + 1 if len(rank) else 0):
         sel = rank == k
         planes[base[sel]] = _bf16(planes[base[sel]] + u[sel])
-    shifts = thash.oct_shifts(cfg)
     out = np.zeros((T, C), np.float32)
     for lv in range(cfg.n_levels):
         o, s = int(offsets[lv]), int(sizes[lv])
-        acc = np.roll(planes[o : o + s, 7], int(shifts[lv, 7]), axis=0)
-        for q in range(6, -1, -1):
+        acc = np.roll(planes[o : o + s, order_q[0]], int(shifts[lv, order_q[0]]), axis=0)
+        for q in order_q[1:]:
             acc = _bf16(acc + np.roll(planes[o : o + s, q], int(shifts[lv, q]), axis=0))
         out[o : o + s] = acc
     return out
 
 
 def _bf16_sum_bound(idx, upd, cfg):
-    """Per table entry, a bound on |bf16-accumulated - exact| of the oct
-    second-order term: every add rounds by at most half a bf16 spacing of
-    a partial sum, each partial sum is at most the entry's sum of
-    |update|, and an entry sees at most (its updates + 8) adds."""
+    """Per table entry, a bound on |bf16-accumulated - exact| of the oct /
+    quad second-order term: every add rounds by at most half a bf16
+    spacing of a partial sum, each partial sum is at most the entry's sum
+    of |update|, and an entry sees at most (its updates + corners) adds."""
     T = cfg.level_tables()[3]
     keep = idx < T
     absum = np.zeros((T, upd.shape[0]), np.float32)
     np.add.at(absum, idx[keep], np.abs(upd.T[keep]))
     count = np.bincount(idx[keep], minlength=T)[:, None]
-    return (count + 8) * 0.5 * BF16_EPS * absum
+    return (count + _corners(cfg)[0]) * 0.5 * BF16_EPS * absum
 
 
 def _with_jax_rounding(grid_grad, idx, upd, cfg):
-    """The port's "oct" grid gradient with its second-order term (the f32
+    """The port's "oct" / "quad" grid gradient with its second-order term (the f32
     sum of the stream, K3's plain version) replaced by the JAX package's
     bf16 sum of the same stream, after holding the two within the bf16
     accumulation bound."""
@@ -267,7 +277,7 @@ def _check_step(jr, tr, option, want, got, grab):
         assert aux_t[k] == pytest.approx(aux_j[k], rel=1e-4, abs=1e-9), (option, k)
     gt = dict(gt)
     cfg = tr.cfg
-    if cfg.eikonal_weight > 0 and cfg.grid_layout == "oct":
+    if cfg.eikonal_weight > 0 and cfg.grid_layout in ("oct", "quad"):
         # hold the f32 term within the bf16 accumulation bound of the JAX
         # package's rounding replayed on the same stream, then compare with
         # that rounding in place
@@ -279,7 +289,7 @@ def _check_step(jr, tr, option, want, got, grab):
     assert np.abs(gj["grid"]).max() > 0 and np.abs(gj["pose"]).max() > 0
 
 
-@pytest.mark.parametrize("layout", ["oct", "cuda"])
+@pytest.mark.parametrize("layout", ["oct", "cuda", "quad"])
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_train_step_option_matches_jax(layout, option, monkeypatch):
     """One train step at step 3 of 10 with the option on, from the JAX init
@@ -307,7 +317,7 @@ def test_train_step_option_matches_jax(layout, option, monkeypatch):
         assert (np.diff(out["z_vals"].detach().numpy(), axis=-1) >= 0).all()  # merged z stays sorted
 
 
-@pytest.mark.parametrize("layout", ["oct", "cuda"])
+@pytest.mark.parametrize("layout", ["oct", "cuda", "quad"])
 def test_eikonal_grid_term_matches_jax_and_is_nonzero(layout, monkeypatch):
     """The eikonal loss's table term, the grid gradient with eikonal_weight
     0.1 minus the one with 0 from the same init and draws, against the JAX
@@ -320,7 +330,7 @@ def test_eikonal_grid_term_matches_jax_and_is_nonzero(layout, monkeypatch):
         want = _jax_step(jr, jax.random.PRNGKey(22))
         got = _port_step(tr, want[3], monkeypatch)
         grid_t = got[2]["grid"]
-        if eik > 0 and layout == "oct":
+        if eik > 0 and layout != "cuda":
             grid_t = _with_jax_rounding(grid_t, *_second_order_stream(tr, got[3]), tr.grid_cfg)
         terms[eik] = (want[2]["grid"], grid_t, got[2]["grid"])
     term_j = terms[0.1][0] - terms[0.0][0]
@@ -333,7 +343,8 @@ def test_eikonal_grid_term_matches_jax_and_is_nonzero(layout, monkeypatch):
 
 
 @pytest.mark.parametrize("layout,head,table_grad", [
-    ("cuda", "tanh", True), ("cuda", "linear", False), ("oct", "linear", True), ("oct", "linear", False)])
+    ("cuda", "tanh", True), ("cuda", "linear", False), ("oct", "linear", True), ("oct", "linear", False),
+    ("quad", "linear", True), ("quad", "linear", False)])
 def test_encoder_grad_of_grad_matches_jax(layout, head, table_grad, monkeypatch):
     """d/d(table, x) of a function of the encoder's points' gradient
     against jax.grad of a jax.grad. The tanh head's gradient depends on the
@@ -376,7 +387,7 @@ def test_encoder_grad_of_grad_matches_jax(layout, head, table_grad, monkeypatch)
     first = (2 if head == "tanh" else 1) if table_grad else 0
     assert (len(grab.k3), grab.k4) == ((1, first) if layout == "oct" else (1 + first, 0))
     assert len(grab.corner) == 1
-    if layout == "oct":
+    if layout != "cuda":
         got_e = _with_jax_rounding(got_e, *grab.corner[0], tc)
     np.testing.assert_allclose(got_e, ge, atol=2e-6 * np.abs(ge).max(), rtol=0)
     assert np.abs(ge).max() > 0

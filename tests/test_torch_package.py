@@ -92,7 +92,10 @@ def test_package_sources_import_no_jax():
                 "cli/run_bop.py", "cli/run_demo.py", "models/loading.py",
                 "models/reference_config.py", "geometry/symmetry.py", "pipeline/multi.py",
                 "utils/vis.py", "cli/run_multi_demo.py", "models/training.py",
-                "datasets/synthetic.py", "datasets/h5_pairs.py", "cli/run_nerf.py"):
+                "datasets/synthetic.py", "datasets/h5_pairs.py", "cli/run_nerf.py",
+                "parallel/__init__.py", "parallel/sharding.py", "utils/debug_vis.py",
+                "utils/profiling.py", "utils/misc.py", "cli/convert_weights.py",
+                "examples/synthetic_end_to_end.py"):
         assert sub in walked, sub
     _assert_no_jax_imports(paths)
 
@@ -100,7 +103,8 @@ def test_package_sources_import_no_jax():
 def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
     """The BOP driver, the readers, the checkpoint loaders and the training
     path (train steps, synthetic batches, the H5 pair readers, train-state
-    checkpoints) and the model-free entry point import with jax, cv2, imageio, yaml and h5py blocked:
+    checkpoints), the model-free entry point, convert_weights, the
+    sharding and the profiling and misc helpers import with jax, cv2, imageio, yaml and h5py blocked:
     each is imported only where it is used (yaml where a result file or a
     sidecar config.yml is read, h5py and imageio where an H5 file is)."""
     script = textwrap.dedent(
@@ -126,6 +130,10 @@ def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
         import foundationpose_torch.datasets.synthetic
         import foundationpose_torch.datasets.h5_pairs
         import foundationpose_torch.cli.run_nerf
+        import foundationpose_torch.cli.convert_weights
+        import foundationpose_torch.parallel
+        import foundationpose_torch.utils.misc
+        import foundationpose_torch.utils.profiling
         from foundationpose_torch.utils.checkpoint import (
             latest_step, load_train_state, save_train_state)
         from foundationpose_torch.models.reference_config import load_reference_yaml
@@ -148,9 +156,10 @@ def test_cli_and_readers_import_without_jax_cv2_imageio_yaml():
 
 
 def test_tracking_and_demo_clis_import_without_jax_cv2_imageio():
-    """The tracking modules, the drawing helpers and both demo drivers
-    import with jax, cv2 and imageio blocked: cv2 and imageio are imported
-    where a frame is read or drawn."""
+    """The tracking modules, the drawing helpers, the debug dumps, both
+    demo drivers and the synthetic walkthrough import with jax, cv2 and
+    imageio blocked: cv2 and imageio are imported where a frame is read
+    or drawn."""
     script = textwrap.dedent(
         """
         import sys
@@ -167,6 +176,9 @@ def test_tracking_and_demo_clis_import_without_jax_cv2_imageio():
         import foundationpose_torch.cli.run_demo
         import foundationpose_torch.cli.run_multi_demo
         import foundationpose_torch.utils.vis
+        import foundationpose_torch.utils.debug_vis
+        import foundationpose_torch.examples.synthetic_end_to_end
+        from foundationpose_torch import MultiTracker as _M
         from foundationpose_torch.pipeline import MultiTracker, TrackResult, fetch_track_results
         from foundationpose_torch.pipeline.graph import TrackChain, track_chain_graph
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
