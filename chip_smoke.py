@@ -65,20 +65,30 @@ their records stay comparable; phase 9 runs the defaults.
    K2 counted around it, and its time beside the full register's, timed
    in turns;
 9. video tracking: the full-width estimator (seeded weights, live delta
-   heads) on a 30-frame 640x480 video of the bench mesh rendered by K1:
+   heads) on a 30-frame 640x480 video of the bench mesh rendered by K1,
+   every tracking step replayed from a CUDA graph captured once per
+   path and size (pipeline/step_graphs.py):
    (a) pipelined track_one_async fetched in batches of 4 by
    fetch_track_results against sync track_one, bit-equal in packed
    full-frame mode and within TRACK_BOUND windowed; (b) packed windowed
    against unpacked full-frame tracking within TRACK_BOUND; (c) a 0.2 m
    jump that outruns the window: recovered full-frame, the frames in
    flight repaired, bit-equal to full-frame tracking; (d) TrackChain, 16
-   frames replayed from a CUDA graph, bit-equal to 16 track_graph_packed
-   calls and free of host synchronisation; (e) MultiTracker with 3
-   objects against 3 single trackers, full-frame and windowed, within
-   TRACK_BOUND; (f) K1 and K2 launched by every path; then per-frame
-   times in turns (sync unpacked against pipelined windowed, the chain
-   against per-frame calls, MultiTracker against 3 single trackers;
-   medians of 10) and traces of tracked frames and a chain;
+   frames replayed from one captured step, bit-equal to 16 calls of the
+   eager body track_packed_body and free of host synchronisation; (e)
+   MultiTracker with 3 objects against 3 single trackers, full-frame and
+   windowed, within TRACK_BOUND; (f) K1 and K2 launched by every path, and
+   for the passes exactly those of their replays and of the captures'
+   warm-up runs; (g) every captured path (single unpacked and packed, full
+   frame and two windows; multi unpacked and packed, full frame and
+   windows) bit-equal to its eager body at full width, a sync and a
+   pipelined windowed pass dispatched under set_sync_debug_mode("error"),
+   the captured steps of each tracker with their capture times, and the
+   bytes the windowed tracker's graphs reserve; then per-frame times in
+   turns (sync windowed against its eager body called per frame, sync
+   unpacked against pipelined windowed, the chain against per-frame eager
+   calls, MultiTracker against 3 single trackers; medians of 10) and
+   traces of tracked frames and a chain;
 10. the model-free path: run_neural_object_field (NerfCfg defaults,
    n_step 200, "oct" layout) on 12 rendered views of the bench mesh, the
    mesh held against the bench mesh (extents within 25%, median vertex
@@ -167,6 +177,7 @@ its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import shutil
@@ -1180,24 +1191,155 @@ def _check_gap(name, a, b):
     return dt, deg
 
 
-def _sync_pass(e, frames):
-    return [e.track_one(r, d, K_FULL, iteration=2) for r, d, _m in frames]
+def _sync_pass(e, frames, guard=contextlib.nullcontext):
+    """track_one on each frame: each frame dispatched (under `guard()`) and
+    then fetched."""
+    out = []
+    for r, d, _m in frames:
+        with guard():
+            fut = e.track_one_async(r, d, K_FULL, iteration=2)
+        out.append(fut.result())
+    return out
 
 
-def _pipelined_pass(e, frames, batch=4, depth=8):
+def _pipelined_pass(e, frames, batch=4, depth=8, guard=contextlib.nullcontext):
     """track_one_async with up to `depth` frames in flight, fetched in
-    batches of `batch` by fetch_track_results (as cli/run_demo.py)."""
+    batches of `batch` by fetch_track_results (as cli/run_demo.py); each
+    dispatch under `guard()`."""
     from collections import deque
 
     from foundationpose_torch.pipeline import fetch_track_results
 
     pending, out = deque(), []
     for r, d, _m in frames:
-        pending.append(e.track_one_async(r, d, K_FULL, iteration=2))
+        with guard():
+            pending.append(e.track_one_async(r, d, K_FULL, iteration=2))
         if len(pending) >= depth:
             out += fetch_track_results([pending.popleft() for _ in range(batch)])
     while pending:
         out += fetch_track_results([pending.popleft() for _ in range(min(batch, len(pending)))])
+    return out
+
+
+def _eager_roi_pass(e, frames):
+    """The windowed sync pass with the eager body of each step called
+    directly, as track_one would run it without its captured steps: the
+    window from the last pose, one packed upload, track_packed_body, the
+    pose fetched (smooth motion: no recoveries)."""
+    import torch
+
+    from foundationpose_torch.pipeline.graph import TRACK_PACK_FOOTER, pack_track_frame, track_packed_body
+
+    Kd = torch.as_tensor(K_FULL, device="cuda")
+    out = []
+    for r, d, _m in frames:
+        x0, y0, s = e._track_roi_window(K_FULL, *d.shape)
+        win = (slice(y0, y0 + s), slice(x0, x0 + s))
+        buf = e._uploads.upload(s * s * 5 + TRACK_PACK_FOOTER,
+                                lambda o: pack_track_frame(r[win], d[win], x0, y0, out=o))
+        with torch.inference_mode():
+            e.pose_last = track_packed_body(e.refiner, e.cfg, e.mesh_tensors, e.pose_last, Kd, buf,
+                                            e._diam, (s, s), 2)
+        e._pose_hint = e.pose_last.cpu().numpy().astype(np.float64)
+        out.append(e._pose_hint @ e.get_tf_to_centered_mesh())
+    return out
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Any host synchronisation inside raises (torch.cuda.set_sync_debug_mode)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _window_at(raw_pose, K, size, hw):
+    """(x0, y0) of the size x size window centered on the projection of the
+    pose's translation, inside the frame."""
+    t = np.asarray(raw_pose, np.float64)[:3, 3]
+    u, v = K[0, 0] * t[0] / t[2] + K[0, 2], K[1, 1] * t[1] / t[2] + K[1, 2]
+    return (int(np.clip(round(u - size / 2), 0, hw[1] - size)),
+            int(np.clip(round(v - size / 2), 0, hw[0] - size)))
+
+
+def captured_against_eager(est, multi, frames, K, sizes):
+    """Every captured tracking step against its eager body on the same
+    inputs. Each path runs through a fresh StepGraphs on two frames (the
+    capture and its first replay, then a replay on the next frame from the
+    first call's pose) and its body is called directly on the same inputs.
+    est: a FoundationPose with pose_last; multi: a MultiTracker with
+    poses_last; frames: two (rgb u8, depth f32, ...) of K's frame size;
+    sizes: two window sizes. Returns {path: (captured (2, ...), eager (2,
+    ...), the StepGraphs)}."""
+    import torch
+
+    from foundationpose_torch.pipeline import graph as g
+    from foundationpose_torch.pipeline import multi as mt
+    from foundationpose_torch.pipeline.step_graphs import StepGraphs
+
+    dev = est.device
+    hw = frames[0][1].shape
+    K_t = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    single = (est.refiner, est.cfg, est.mesh_tensors)
+    group = (multi.refiner, multi.cfg, tuple(multi.mesh_tensors))
+    raw = est.pose_last.cpu().numpy()
+    raws = multi.poses_last.cpu().numpy()
+    out = {}
+
+    def check(name, captured, eager, statics, pose, diam, inputs, tail):
+        """inputs(frame) -> the dynamic inputs after the pose; tail: the
+        static arguments after the diameters."""
+        graphs = StepGraphs()
+        got, want = [], []
+        p_got = p_want = pose
+        for fr in frames[:2]:
+            x = inputs(fr)
+            p_got = captured(*statics, p_got, *x, diam, *tail, graphs=graphs)
+            with torch.inference_mode():
+                p_want = eager(*statics, p_want, *x, diam, *tail)
+            got.append(p_got)
+            want.append(p_want)
+        out[name] = (torch.stack(got), torch.stack(want), graphs)
+
+    def unpacked_body(r, c, m, p, K_, rgb, depth, diam, it):
+        return g.track_body(r, c, m, p, K_, rgb.to(torch.float32) / 255.0, depth, diam, it)
+
+    check("track (unpacked, full frame)", g.track_graph, unpacked_body, single, est.pose_last,
+          est._diam, lambda fr: (K_t, up(fr[0]), up(fr[1])), (2,))
+    check("track_packed (full frame)", g.track_graph_packed, g.track_packed_body, single,
+          est.pose_last, est._diam, lambda fr: (K_t, up(g.pack_track_frame(fr[0], fr[1], 0, 0))),
+          (hw, 2))
+    for s in sizes:
+        x0, y0 = _window_at(raw, K, s, hw)
+        win = (slice(y0, y0 + s), slice(x0, x0 + s))
+        check(f"track_packed (window {s})", g.track_graph_packed, g.track_packed_body, single,
+              est.pose_last, est._diam,
+              lambda fr: (K_t, up(g.pack_track_frame(fr[0][win], fr[1][win], x0, y0))), ((s, s), 2))
+    check("multi (unpacked, full frame)", mt.multi_track_graph, mt.multi_track_body, group,
+          multi.poses_last, multi._diam, lambda fr: (K_t, up(fr[0]), up(fr[1])), (2,))
+    check("multi_packed (full frame)", mt.multi_track_graph_packed, mt.multi_track_packed_body,
+          group, multi.poses_last, multi._diam,
+          lambda fr: (K_t, up(g.pack_track_frame(fr[0], fr[1], 0, 0))), (hw, 2))
+    s = sizes[-1]
+    x0s, y0s = zip(*(_window_at(r, K, s, hw) for r in raws))
+    Ks = np.tile(np.asarray(K, np.float32), (len(raws), 1, 1))
+    Ks[:, 0, 2] -= np.float32(x0s)
+    Ks[:, 1, 2] -= np.float32(y0s)
+
+    def windows(a):
+        return np.stack([a[y0:y0 + s, x0:x0 + s] for x0, y0 in zip(x0s, y0s)])
+
+    check(f"multi_roi (unpacked, windows {s})", mt.multi_track_roi_graph, mt.multi_track_roi_body,
+          group, multi.poses_last, multi._diam,
+          lambda fr: (up(Ks), up(windows(fr[0])), up(windows(fr[1]))), (2,))
+    check(f"multi_roi_packed (windows {s})", mt.multi_track_roi_graph_packed,
+          mt.multi_track_roi_packed_body, group, multi.poses_last, multi._diam,
+          lambda fr: (K_t, up(mt.pack_multi_track_frame(fr[0], fr[1], x0s, y0s, s))), (s, 2))
     return out
 
 
@@ -1208,11 +1350,18 @@ class _Counts:
     def __init__(self):
         self.paths = {}
 
-    def run(self, name, fn, *args):
+    def run(self, name, fn, *args, tracked=None):
+        """tracked: (the tracker's StepGraphs, the steps it replays (or a
+        function of nothing that counts them after the run), K1 and K2
+        launches a step); then the counts must be those of the replays and
+        of the warm-up runs of the steps captured on the way
+        (step_graphs.WARMUP_RUNS each)."""
         import torch
 
         from foundationpose_torch.ops import attention_cuda, raster_cuda
+        from foundationpose_torch.pipeline.step_graphs import WARMUP_RUNS
 
+        n0 = len(tracked[0]) if tracked else 0
         torch.cuda.synchronize()
         raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
         out = fn(*args)
@@ -1222,6 +1371,15 @@ class _Counts:
         print(f"  launches {name}: K1 {k[0]} K2 {k[1]}")
         if not (k[0] > 0 and k[1] > 0):
             raise AssertionError(f"{name} did not launch K1 and K2")
+        if tracked:
+            graphs, frames, per_step = tracked
+            frames = frames() if callable(frames) else frames
+            steps = frames + WARMUP_RUNS * (len(graphs) - n0)
+            want = tuple(steps * n for n in per_step)
+            print(f"    {frames} steps replayed, {len(graphs) - n0} captured: "
+                  f"K1 {want[0]} K2 {want[1]} expected")
+            if k != want:
+                raise AssertionError(f"{name}: the launch counts are not those of the frames tracked")
         return out
 
     def total(self):
@@ -1232,17 +1390,21 @@ class _Counts:
 def video_phase():
     """The video-tracking path at full width (base_width 64, 160x160 crops,
     bf16, seeded weights, live delta heads) on a 30-frame 640x480 video of
-    the bench mesh rendered by K1: (a) pipelined against synchronous
+    the bench mesh rendered by K1, every step replayed from its captured
+    CUDA graph (step_graphs.py): (a) pipelined against synchronous
     tracking, (b) packed windowed against unpacked full-frame tracking,
     (c) a jump that outruns the window, recovered and repaired through the
-    frames in flight, (d) the chain of 16 frames replayed from a CUDA graph
-    against 16 per-frame calls, (e) MultiTracker with 3 objects against 3
-    single trackers, (f) K1 / K2 launches of each path; then times, each
-    in turns with its counterpart, and traces."""
+    frames in flight, (d) the chain of 16 frames against 16 calls of the
+    eager body, (e) MultiTracker with 3 objects against 3 single trackers,
+    (f) K1 / K2 launches of each path (those of the frames' replays and the
+    captures' warm-up runs), (g) every captured path bit-equal to its eager
+    body, the dispatch of a sync and a pipelined pass free of host
+    synchronisation, the graphs, their capture times and their pool; then
+    times, each in turns with its counterpart, and traces."""
     import torch
 
     from foundationpose_torch.pipeline import EstimatorCfg, MultiTracker, RasterCfg, RefinerCfg, ScorerCfg
-    from foundationpose_torch.pipeline.graph import TrackChain, pack_track_frame, track_graph_packed
+    from foundationpose_torch.pipeline.graph import TrackChain, pack_track_frame, track_packed_body
 
     mesh = _bench_mesh()
     gts = _video_poses(VIDEO_FRAMES)
@@ -1261,29 +1423,43 @@ def video_phase():
           f"recoveries {est.register_roi_recoveries}")
     start = (est.pose_last.clone(), est._pose_hint.copy())
     video = frames[1:]
+    n = len(video)
     full = _tracker(est, track_roi=False)  # packed full-frame
     unpacked = _tracker(est, **UNPACKED)
+    step = (2, 4)  # K1, K2 launches of a tracked frame
 
     # (a) pipelined against synchronous, on the same frames
-    sync_full = counts.run("sync track_one (packed full-frame)", _sync_pass, full, video)
+    sync_full = counts.run("sync track_one (packed full-frame)", _sync_pass, full, video,
+                           tracked=(full._graphs, n, step))
     _set_state(full, start)
-    pipe_full = counts.run("pipelined track_one_async (packed full-frame)", _pipelined_pass, full, video)
+    pipe_full = counts.run("pipelined track_one_async (packed full-frame)", _pipelined_pass, full,
+                           video, tracked=(full._graphs, n, step))
     equal = bool(np.array_equal(np.stack(sync_full), np.stack(pipe_full)))
     print(f"  (a) pipelined (batches of 4, 8 in flight) against sync, packed full-frame: "
           f"equal {equal}")
     if not equal:
         raise AssertionError("(a) pipelined tracking differs from synchronous tracking")
     _set_state(est, start)
-    sync_roi = counts.run("sync track_one (packed, window)", _sync_pass, est, video)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    sync_roi = counts.run("sync track_one (packed, window)", _sync_pass, est, video,
+                          tracked=(est._graphs, n, step))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t["track_roi_graph_pool_reserved_bytes"] = torch.cuda.memory_reserved() - reserved0
+    t["track_roi_graph_pool_steps"] = len(est._graphs)
     _set_state(est, start)
-    pipe_roi = counts.run("pipelined track_one_async (packed, window)", _pipelined_pass, est, video)
+    pipe_roi = counts.run("pipelined track_one_async (packed, window)", _pipelined_pass, est, video,
+                          tracked=(est._graphs, n, step))
     t["video_roi_pipelined_vs_sync_mm"], t["video_roi_pipelined_vs_sync_deg"] = _check_gap(
         "(a) windowed, pipelined against sync (the lagging windows move)", pipe_roi, sync_roi)
     if est.track_stats["roi_recoveries"]:
         raise AssertionError(f"smooth motion needed a recovery: {est.track_stats}")
 
     # (b) packed windowed against unpacked full-frame, synchronous
-    sync_unpacked = counts.run("sync track_one (unpacked full-frame)", _sync_pass, unpacked, video)
+    sync_unpacked = counts.run("sync track_one (unpacked full-frame)", _sync_pass, unpacked, video,
+                               tracked=(unpacked._graphs, n, step))
     t["video_roi_vs_unpacked_mm"], t["video_roi_vs_unpacked_deg"] = _check_gap(
         "(b) packed windowed against unpacked full-frame", sync_roi, sync_unpacked)
     moved = _pose_gap(sync_roi[-1], pose)
@@ -1303,7 +1479,9 @@ def video_phase():
                              dtype=torch.float32, device="cuda")
     est.pose_last = forced
     est.track_stats = {"frames": 0, "roi_recoveries": 0, "chain_repairs": 0}
-    got = counts.run("jump: pipelined, recovered", _pipelined_pass, est, jframes)
+    got = counts.run("jump: pipelined, recovered", _pipelined_pass, est, jframes, tracked=(
+        est._graphs, lambda: len(jframes) + est.track_stats["roi_recoveries"]
+        + est.track_stats["chain_repairs"], step))
     _set_state(full, (forced, est._pose_hint))
     want = _sync_pass(full, jframes)
     equal = bool(np.array_equal(np.stack(got), np.stack(want)))
@@ -1312,33 +1490,30 @@ def video_phase():
             and est._chain_repair is None and equal):
         raise AssertionError("(c) the window recovery or the chain repair failed")
 
-    # (d) the chain: CHAIN_K frames, one upload, a CUDA graph replayed per frame
+    # (d) the chain: CHAIN_K frames, one upload, a captured step replayed per frame
     hw = frames[0][1].shape
     bufs = torch.as_tensor(np.stack([pack_track_frame(r, d, 0, 0) for r, d, _m in video[:CHAIN_K]]),
                            device="cuda")
     Kd = torch.as_tensor(K_FULL, device="cuda")
     pose0 = start[0]
     args = (est.refiner, est.cfg, est.mesh_tensors)
-    chain = TrackChain(*args, Kd, est._diam, hw, 2, bufs.shape[1])
-    traj = counts.run("chain (capture + replays)", chain, pose0, bufs)
+    chain = TrackChain(*args, Kd, est._diam, hw, 2)
+    traj = counts.run("chain (capture + replays)", chain, pose0, bufs, tracked=(chain.graphs, CHAIN_K, step))
 
     def per_frame():
         p, out = pose0, []
         with torch.inference_mode():
             for i in range(CHAIN_K):
-                p = track_graph_packed(*args, p, Kd, bufs[i], est._diam, hw, 2)
+                p = track_packed_body(*args, p, Kd, bufs[i], est._diam, hw, 2)
                 out.append(p)
         return torch.stack(out)
 
     seq = per_frame()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with _no_sync():
         traj2 = chain(pose0, bufs)  # replays only: no host synchronisation
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     d_seq = float((traj - seq).abs().max())
-    print(f"  (d) chain of {CHAIN_K} against per-frame track_graph_packed: bit-equal "
+    print(f"  (d) chain of {CHAIN_K} against per-frame track_packed_body: bit-equal "
           f"{bool(torch.equal(traj, seq))} (max |d| {d_seq:.3e}); replays bit-equal "
           f"{bool(torch.equal(traj, traj2))}, no synchronisation between steps")
     if not (torch.equal(traj, seq) and torch.equal(traj, traj2)):
@@ -1364,13 +1539,52 @@ def video_phase():
         singles = singles_at(mode)
         multi = MultiTracker.from_estimators(singles)
         m_out = counts.run(f"MultiTracker M=3 ({name})", lambda: [
-            multi.track(r, d, K_FULL, iteration=2) for r, d, _m in mframes[1:]])
+            multi.track(r, d, K_FULL, iteration=2) for r, d, _m in mframes[1:]],
+            tracked=(multi._graphs, lambda: len(mframes) - 1 + multi.track_stats["roi_recoveries"]
+                     + multi.track_stats["chain_repairs"], (6, 4)))
         s_out = [np.stack([s_.track_one(r, d, K_FULL, iteration=2) for s_ in singles])
                  for r, d, _m in mframes[1:]]
         key = "full" if name == "full-frame" else "roi"
         t[f"multi_{key}_vs_singles_mm"], t[f"multi_{key}_vs_singles_deg"] = _check_gap(
             f"(e) MultiTracker M=3 against 3 single trackers, {name}", m_out, s_out)
     t["video_launches_by_path"] = json.dumps(counts.paths)
+
+    # (g) the captured steps: every path against its eager body at full
+    # width (the windowed tracker of object 0 and the windowed MultiTracker,
+    # on the last two frames of (e)); the dispatch of a sync and a
+    # pipelined pass under set_sync_debug_mode("error"), the fetches
+    # outside it; the graphs each tracker captured, their capture times and
+    # their pool
+    for name, (got, want, graphs) in captured_against_eager(
+            singles[0], multi, mframes[-2:], K_FULL, (256, 384)).items():
+        (_key, g), = graphs.items()
+        print(f"  (g) {name}: captured against eager bit-equal {bool(torch.equal(got, want))}, "
+              f"max |d| {float((got - want).abs().max()):.3e}, capture {g.capture_ms:.1f} ms, "
+              f"launches a replay {[n for _c, n in g.launches]}")
+        if not (torch.equal(got, want) and len(graphs) == 1):
+            raise AssertionError(f"(g) the captured step {name} differs from its eager body")
+    _set_state(est, start)
+    sync_g = _sync_pass(est, video, guard=_no_sync)
+    _set_state(est, start)
+    pipe_g = _pipelined_pass(est, video, guard=_no_sync)
+    equal = (np.array_equal(np.stack(sync_g), np.stack(sync_roi))
+             and np.array_equal(np.stack(pipe_g), np.stack(pipe_roi)))
+    print(f"  (g) sync and pipelined windowed passes dispatched under set_sync_debug_mode('error'): "
+          f"no synchronisation, poses equal to (a)'s {equal}")
+    if not equal:
+        raise AssertionError("(g) the replays of the passes differ from (a)")
+    owners = {"windowed": est._graphs, "full-frame": full._graphs, "unpacked": unpacked._graphs,
+              "chain": chain.graphs, "multi (window)": multi._graphs}
+    for name, graphs in owners.items():
+        print(f"  (g) {name}: {len(graphs)} captured steps, "
+              + ", ".join(f"{k[0][1:]} {g.capture_ms:.1f} ms" for k, g in graphs.items()))
+    sizes = sorted(k[0][1] for k, _g in est._graphs.items())
+    t["track_roi_captured_steps"] = len(est._graphs)
+    t["track_roi_step_sizes"] = json.dumps(sizes)
+    t["track_roi_capture_ms_max"] = max(g.capture_ms for _k, g in est._graphs.items())
+    print(f"  (g) the windowed tracker: {len(est._graphs)} captured steps of sizes {sizes}; its "
+          f"first pass captured {t['track_roi_graph_pool_steps']}, which reserved "
+          f"{t['track_roi_graph_pool_reserved_bytes'] / 2**20:.1f} MiB")
 
     # times, each in turns with its counterpart
     def timed_pass(e, run):
@@ -1379,10 +1593,14 @@ def video_phase():
             run(e, video)
         return go
 
+    tp = _wall_in_turns({"sync_roi": timed_pass(est, _sync_pass),
+                         "eager_roi": timed_pass(est, _eager_roi_pass)}, 10)
+    t["track_sync_roi_ms_per_frame"] = tp["sync_roi"] / n
+    t["track_eager_roi_ms_per_frame"] = tp["eager_roi"] / n
     tp = _wall_in_turns({"sync_unpacked": timed_pass(unpacked, _sync_pass),
                          "pipelined_roi": timed_pass(est, _pipelined_pass)}, 10)
-    t["track_sync_unpacked_ms_per_frame"] = tp["sync_unpacked"] / len(video)
-    t["track_pipelined_roi_ms_per_frame"] = tp["pipelined_roi"] / len(video)
+    t["track_sync_unpacked_ms_per_frame"] = tp["sync_unpacked"] / n
+    t["track_pipelined_roi_ms_per_frame"] = tp["pipelined_roi"] / n
     tc = _wall_in_turns({"chain": lambda: chain(pose0, bufs), "per_frame": per_frame}, 10)
     t["chain_ms_per_frame"] = tc["chain"] / CHAIN_K
     t["chain_per_frame_calls_ms_per_frame"] = tc["per_frame"] / CHAIN_K

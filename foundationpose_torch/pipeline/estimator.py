@@ -18,6 +18,9 @@ window around the object (`EstimatorCfg.register_pack` / `register_roi`
 re-run on the full frame, so the poses are those of full-frame runs.
 Tracking is asynchronous: the pose chain stays on the device and each
 frame's pose streams back to pinned host memory while later frames run.
+Each tracking step replays a CUDA graph captured at the first frame of
+its window size (step_graphs.py); the window check, the full-frame
+re-run and the chain repair run on the host between replays.
 """
 from __future__ import annotations
 
@@ -49,10 +52,11 @@ from .graph import (
     pack_track_frame,
     register_body_sharded,
     register_graph_packed_sharded,
-    track_body,
+    track_graph,
     track_graph_packed,
 )
 from .mesh_tensors import make_mesh_tensors
+from .step_graphs import GraphOwner, StepGraphs
 
 logger = logging.getLogger(__name__)
 
@@ -231,7 +235,7 @@ def _as_module(params, cls, net_cfg):
     raise TypeError(f"expected an nn.Module or a state_dict, got {type(params)}")
 
 
-class FoundationPose:
+class FoundationPose(GraphOwner):
     def __init__(
         self,
         model_pts=None,
@@ -263,6 +267,10 @@ class FoundationPose:
         mesh's first device, which also tracks. `debug` >= 2 writes crop
         canvases of each register to `debug_dir`, >= 3 also the posed mesh
         (utils/debug_vis.py)."""
+        # The captured tracking steps (step_graphs.py): reset_object,
+        # load_weights and any assignment of the refiner, the config or the
+        # render mesh clear them (GraphOwner).
+        self._graphs = StepGraphs()
         if device_mesh is None:
             device_mesh = (make_device_mesh(n_devices, device=device) if n_devices and n_devices > 1
                            else make_device_mesh(devices=[device]))
@@ -611,22 +619,27 @@ class FoundationPose:
 
     def _track_step(self, pose_in, K_full, rgb, depth, x0, y0, iters):
         """One tracking step on the window (x0, y0) of the frame (rgb,
-        depth: that window) -> the device pose. Packed: one upload and the
-        principal point shifted on the device; unpacked: three uploads."""
+        depth: that window) -> the device pose, replayed from the step
+        captured for this window size. Packed: one upload and the principal
+        point shifted on the device; unpacked: three uploads."""
+        h, w = depth.shape
         if self.cfg.track_pack:
-            h, w = depth.shape
             buf = self._uploads.upload(
                 h * w * 5 + TRACK_PACK_FOOTER,
                 lambda out: pack_track_frame(rgb, depth, x0, y0, out=out),
             )
             return track_graph_packed(self.refiner, self.cfg, self.mesh_tensors, pose_in,
-                                      self._K_device(K_full), buf, self._diam, (h, w), iters)
+                                      self._K_device(K_full), buf, self._diam, (h, w), iters,
+                                      graphs=self._graphs)
         Kr = K_full.copy()
         Kr[0, 2] -= x0
         Kr[1, 2] -= y0
-        K_t, rgb_t, depth_t = self._frame(Kr, rgb, depth)
-        return track_body(self.refiner, self.cfg, self.mesh_tensors, pose_in, K_t, rgb_t,
-                          depth_t, self._diam, iters)
+        dev = self.device
+        return track_graph(self.refiner, self.cfg, self.mesh_tensors, pose_in,
+                           torch.as_tensor(Kr, device=dev),
+                           torch.as_tensor(np.asarray(rgb, np.uint8), device=dev),
+                           torch.as_tensor(np.asarray(depth, np.float32), device=dev), self._diam,
+                           iters, graphs=self._graphs)
 
     @torch.inference_mode()
     def track_one_async(self, rgb, depth, K, iteration=2) -> TrackResult:

@@ -4,11 +4,13 @@ Port of foundationpose_tpu/pipeline/graph.py: `register_body_sharded`
 (`register_body` with its prune funnel, over the hypothesis shards of a
 device mesh, which may hold one device), `track_body`, `device_guess_translation`, the upload wire
 formats (`pack_track_frame`, `pack_register_frame` on the host, their
-inverses on the device), the packed graphs and `track_chain_graph`.
-PyTorch runs eagerly, so each body is a plain function of tensors; no
-step copies a value to the host. On the card, `TrackChain` captures one
-packed tracking step in a CUDA graph and replays it once per frame: the
-counterpart of the JAX package's `lax.scan` over staged frames.
+inverses on the device), the packed register and `track_chain_graph`.
+Each body is a plain function of tensors, run eagerly; no step copies a
+value to the host. `track_graph` and `track_graph_packed`, as the JAX
+package jit-compiles them, run their body as one captured step
+(`step_graphs.py`: a CUDA graph per static shape, replayed per call);
+`TrackChain` replays one such step once per frame: the counterpart of
+the JAX package's `lax.scan` over staged frames.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from .config import EstimatorCfg
 from .mesh_tensors import MeshTensors
 from .refiner import refine_poses
 from .scorer import score_poses_sharded
+from .step_graphs import StepGraphs, run_step
 
 
 def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.Tensor):
@@ -334,8 +337,8 @@ def register_graph_packed_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, h
     return register_body_sharded(replicas, cfg, rot_grid_parts, hyp_valid_parts, frames, iterations)
 
 
-def track_graph_packed(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,
-                       mesh_diameter, hw, iterations):
+def track_packed_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,
+                      mesh_diameter, hw, iterations):
     """track_body on a pack_track_frame buffer: unpack, shift the
     full-frame K's principal point by the packed window offset, track."""
     rgb, depth_raw, x0, y0 = unpack_track_frame(buf, hw)
@@ -343,69 +346,59 @@ def track_graph_packed(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, 
                       rgb, depth_raw, mesh_diameter, iterations)
 
 
-class TrackChain:
-    """k tracking steps chained on the device over k staged packed frames.
+def track_graph(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K, rgb_u8, depth_raw,
+                mesh_diameter, iterations, graphs: StepGraphs | None = None):
+    """One tracking step from unpacked tensors (K of the window, rgb u8
+    (h, w, 3), depth f32 (h, w)) as one captured step (`step_graphs`),
+    replayed from `graphs`, an owner's cache; returns the new pose."""
+    iterations = int(iterations)
 
-    On the card the first call captures one `track_graph_packed` step in
-    a `torch.cuda.CUDAGraph` (after warm-up runs on a side stream, so that
-    cuDNN and cuBLAS have made their choices and K1's library is loaded);
-    each later frame copies its buffer into the graph's static input,
-    replays the graph and chains the pose device to device. One launch of
-    the graph per frame and no host synchronisation between steps. The
-    capture reads the inputs given here by address, so they must stay
-    alive and unchanged; the faces of `mesh` must have been checked
-    (`make_mesh_tensors` does it), else the first render reads them back.
-    On the CPU each step runs eagerly."""
+    def body(pose, K, rgb_u8, depth_raw, diam):
+        rgb = rgb_u8.to(torch.float32) / 255.0
+        return track_body(refiner_net, cfg, mesh, pose, K, rgb, depth_raw, diam, iterations)
+
+    return run_step(graphs, ("track", iterations), (refiner_net, cfg, mesh), body,
+                    pose_last, K, rgb_u8, depth_raw, mesh_diameter)
+
+
+def track_graph_packed(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,
+                       mesh_diameter, hw, iterations, graphs: StepGraphs | None = None):
+    """track_packed_body as one captured step, replayed from `graphs`, an
+    owner's cache (see track_graph)."""
+    hw, iterations = tuple(hw), int(iterations)
+
+    def body(pose, K_full, buf, diam):
+        return track_packed_body(refiner_net, cfg, mesh, pose, K_full, buf, diam, hw, iterations)
+
+    return run_step(graphs, ("track_packed", hw, iterations), (refiner_net, cfg, mesh), body,
+                    pose_last, K_full, buf, mesh_diameter)
+
+
+class TrackChain:
+    """k tracking steps chained on the device over k staged packed frames:
+    one `track_graph_packed` step, captured at the first call (a
+    `StepGraph`), replayed once a frame with the pose chained device to
+    device. No host synchronisation between steps. On the CPU each step
+    runs eagerly."""
 
     def __init__(self, refiner_net, cfg: EstimatorCfg, mesh, K_full, mesh_diameter, hw,
-                 iterations, n_bytes):
+                 iterations):
         self.step_args = (refiner_net, cfg, mesh)
         self.K_full = K_full
         self.diam = mesh_diameter
         self.hw = tuple(hw)
         self.iterations = int(iterations)
-        dev = K_full.device
-        self.device = dev
-        self.graph = None
-        self._buf = torch.zeros(n_bytes, dtype=torch.uint8, device=dev)
-        self._pose = torch.eye(4, dtype=torch.float32, device=dev)
-        self._out = None
+        self.graphs = StepGraphs()
 
-    def _step(self, pose, buf):
-        return track_graph_packed(*self.step_args, pose, self.K_full, buf, self.diam, self.hw,
-                                  self.iterations)
-
-    def _capture(self, warmup=2):
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                self._step(self._pose, self._buf)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._out = self._step(self._pose, self._buf)
-
-    @torch.inference_mode()
     def __call__(self, pose0: torch.Tensor, bufs: torch.Tensor) -> torch.Tensor:
         """pose0 (4, 4), bufs (k, n_bytes) uint8 on the device -> the (k, 4,
         4) trajectory on the device."""
-        if self.device.type != "cuda":
-            poses, p = [], pose0
-            for i in range(bufs.shape[0]):
-                p = self._step(p, bufs[i])
-                poses.append(p)
-            return torch.stack(poses)
-        if self.graph is None:
-            self._capture()
-        out = torch.empty((bufs.shape[0], 4, 4), dtype=torch.float32, device=self.device)
-        self._pose.copy_(pose0)
-        for i in range(bufs.shape[0]):
-            self._buf.copy_(bufs[i])
-            self.graph.replay()
-            self._pose.copy_(self._out)
-            out[i].copy_(self._out)
-        return out
+        poses, p = [], pose0
+        for buf in bufs:
+            p = track_graph_packed(*self.step_args, p, self.K_full, buf, self.diam, self.hw,
+                                   self.iterations, graphs=self.graphs)
+            poses.append(p)
+        return torch.stack(poses)
 
 
 def track_chain_graph(refiner_net, cfg: EstimatorCfg, mesh, pose0, K_full, bufs, mesh_diameter,
@@ -413,7 +406,7 @@ def track_chain_graph(refiner_net, cfg: EstimatorCfg, mesh, pose0, K_full, bufs,
     """k sequential tracking steps over k pack_track_frame buffers, chained
     on the device; returns the (k, 4, 4) trajectory on the device. `bufs`
     is a (k, n_bytes) uint8 array or tensor: a host array is uploaded once
-    (pinned, asynchronous). Each step computes what `track_graph_packed`
+    (pinned, asynchronous). Each step computes what `track_packed_body`
     computes (see TrackChain)."""
     dev = K_full.device
     if isinstance(bufs, np.ndarray):
@@ -421,6 +414,4 @@ def track_chain_graph(refiner_net, cfg: EstimatorCfg, mesh, pose0, K_full, bufs,
         if dev.type == "cuda":
             host = host.pin_memory()
         bufs = host.to(dev, non_blocking=True)
-    chain = TrackChain(refiner_net, cfg, mesh, K_full, mesh_diameter, hw, iterations,
-                       bufs.shape[1])
-    return chain(pose0, bufs)
+    return TrackChain(refiner_net, cfg, mesh, K_full, mesh_diameter, hw, iterations)(pose0, bufs)

@@ -14,7 +14,10 @@ all of them:
   (per object for the "deepim" parameterization in ROI mode, whose
   deltas read each object's K);
 * one upload and one result per frame for all objects; the (M, 4, 4)
-  pose block chains on the device as in `track_one_async`.
+  pose block chains on the device as in `track_one_async`;
+* each step is replayed from a CUDA graph captured once per path, object
+  count, size and iterations (step_graphs.py), as the JAX package
+  jit-compiles it.
 
 The poses are those of M single-object trackers on the same frames.
 """
@@ -52,6 +55,7 @@ from .graph import (
 )
 from .mesh_tensors import MeshTensors, make_mesh_tensors
 from .refiner import apply_pose_delta
+from .step_graphs import GraphOwner, StepGraphs, run_step
 
 logger = logging.getLogger(__name__)
 
@@ -99,7 +103,7 @@ def _multi_step(refiner_net, cfg: EstimatorCfg, meshes, poses, Ks, rgbs, xyzs, d
     return cur
 
 
-def _multi_body(refiner_net, cfg, meshes, poses, K, rgb, depth_raw, diameters, iterations):
+def _multi_full(refiner_net, cfg, meshes, poses, K, rgb, depth_raw, diameters, iterations):
     """Full-frame M-object step (rgb f32 in [0, 1]): frame prep once."""
     xyz = _prep(depth_raw, K, cfg.zfar)
     M = len(meshes)
@@ -107,7 +111,7 @@ def _multi_body(refiner_net, cfg, meshes, poses, K, rgb, depth_raw, diameters, i
                        diameters, iterations, per_object_k=False)
 
 
-def _multi_roi_body(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diameters, iterations):
+def _multi_windows(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diameters, iterations):
     """ROI M-object step: M windows (rgb_w (M, S, S, 3) f32, depth_w (M, S,
     S)) with their principal-point-shifted Ks (M, 3, 3); frame prep as one
     batch over the windows."""
@@ -116,30 +120,30 @@ def _multi_roi_body(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diamete
                        per_object_k=True)
 
 
-def multi_track_graph(refiner_net, cfg, meshes, poses, K, rgb_u8, depth_raw, diameters,
-                      iterations):
+def multi_track_body(refiner_net, cfg, meshes, poses, K, rgb_u8, depth_raw, diameters,
+                     iterations):
     """One frame of tracking for M objects from unpacked tensors (rgb u8
     (H, W, 3), depth f32 (H, W)); returns the refined (M, 4, 4) poses."""
     rgb = rgb_u8.to(torch.float32) / 255.0
-    return _multi_body(refiner_net, cfg, meshes, poses, K, rgb, depth_raw, diameters, iterations)
+    return _multi_full(refiner_net, cfg, meshes, poses, K, rgb, depth_raw, diameters, iterations)
 
 
-def multi_track_graph_packed(refiner_net, cfg, meshes, poses, K_full, buf, diameters, hw,
-                             iterations):
+def multi_track_packed_body(refiner_net, cfg, meshes, poses, K_full, buf, diameters, hw,
+                            iterations):
     """Full-frame M-object tracking from one pack_track_frame buffer."""
     rgb, depth_raw, _x0, _y0 = unpack_track_frame(buf, hw)
-    return _multi_body(refiner_net, cfg, meshes, poses, K_full, rgb, depth_raw, diameters,
+    return _multi_full(refiner_net, cfg, meshes, poses, K_full, rgb, depth_raw, diameters,
                        iterations)
 
 
-def multi_track_roi_graph(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diameters,
-                          iterations):
-    """ROI variant of multi_track_graph: each object has its own window of
+def multi_track_roi_body(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diameters,
+                         iterations):
+    """ROI variant of multi_track_body: each object has its own window of
     the frame (rgb_w (M, S, S, 3) u8, depth_w (M, S, S) f32) and its K with
     the principal point shifted by the window's offset (Ks (M, 3, 3))."""
     rgb = rgb_w.to(torch.float32) / 255.0
-    return _multi_roi_body(refiner_net, cfg, meshes, poses, Ks, rgb, depth_w, diameters,
-                           iterations)
+    return _multi_windows(refiner_net, cfg, meshes, poses, Ks, rgb, depth_w, diameters,
+                          iterations)
 
 
 def pack_multi_track_frame(rgb, depth, x0s, y0s, size: int, out=None) -> np.ndarray:
@@ -165,8 +169,8 @@ def pack_multi_track_frame(rgb, depth, x0s, y0s, size: int, out=None) -> np.ndar
     return buf
 
 
-def multi_track_roi_graph_packed(refiner_net, cfg, meshes, poses, K_full, buf, diameters, size,
-                                 iterations):
+def multi_track_roi_packed_body(refiner_net, cfg, meshes, poses, K_full, buf, diameters, size,
+                                iterations):
     """ROI tracking from one pack_multi_track_frame buffer: unpack the M
     windows and offsets on the device and shift each object's K."""
     M = len(meshes)
@@ -174,8 +178,48 @@ def multi_track_roi_graph_packed(refiner_net, cfg, meshes, poses, K_full, buf, d
     rgb, depth_w = _unpack_pixels(buf[:n_img].reshape(M, size, size, 5))
     x0, y0 = _offset(buf[n_img:].reshape(M, 4))
     Ks = shift_principal_point(K_full.expand(M, 3, 3), x0, y0)
-    return _multi_roi_body(refiner_net, cfg, meshes, poses, Ks, rgb, depth_w, diameters,
-                           iterations)
+    return _multi_windows(refiner_net, cfg, meshes, poses, Ks, rgb, depth_w, diameters,
+                          iterations)
+
+
+# The four steps as the JAX package jit-compiles them: each body as one
+# captured step (step_graphs.py), replayed from `graphs`, an owner's cache,
+# keyed by the path, the object count, the frame or window size and the
+# iterations.
+
+
+def _captured(path, body, refiner_net, cfg, meshes, sizes, iterations, graphs, *inputs):
+    meshes, iterations = tuple(meshes), int(iterations)
+    return run_step(graphs, (path, len(meshes), sizes, iterations), (refiner_net, cfg, *meshes),
+                    lambda *x: body(refiner_net, cfg, meshes, *x, *sizes, iterations), *inputs)
+
+
+def multi_track_graph(refiner_net, cfg, meshes, poses, K, rgb_u8, depth_raw, diameters,
+                      iterations, graphs: StepGraphs | None = None):
+    """multi_track_body as one captured step."""
+    return _captured("multi", multi_track_body, refiner_net, cfg, meshes, (), iterations, graphs,
+                     poses, K, rgb_u8, depth_raw, diameters)
+
+
+def multi_track_graph_packed(refiner_net, cfg, meshes, poses, K_full, buf, diameters, hw,
+                             iterations, graphs: StepGraphs | None = None):
+    """multi_track_packed_body as one captured step."""
+    return _captured("multi_packed", multi_track_packed_body, refiner_net, cfg, meshes,
+                     (tuple(hw),), iterations, graphs, poses, K_full, buf, diameters)
+
+
+def multi_track_roi_graph(refiner_net, cfg, meshes, poses, Ks, rgb_w, depth_w, diameters,
+                          iterations, graphs: StepGraphs | None = None):
+    """multi_track_roi_body as one captured step."""
+    return _captured("multi_roi", multi_track_roi_body, refiner_net, cfg, meshes, (), iterations,
+                     graphs, poses, Ks, rgb_w, depth_w, diameters)
+
+
+def multi_track_roi_graph_packed(refiner_net, cfg, meshes, poses, K_full, buf, diameters, size,
+                                 iterations, graphs: StepGraphs | None = None):
+    """multi_track_roi_packed_body as one captured step."""
+    return _captured("multi_roi_packed", multi_track_roi_packed_body, refiner_net, cfg, meshes,
+                     (int(size),), iterations, graphs, poses, K_full, buf, diameters)
 
 
 class MultiTrackResult(TrackResult):
@@ -186,7 +230,7 @@ class MultiTrackResult(TrackResult):
     __slots__ = ()
 
 
-class MultiTracker:
+class MultiTracker(GraphOwner):
     """Track M rigid objects with one step per frame.
 
     Register each object once with a FoundationPose (which needs the
@@ -195,10 +239,14 @@ class MultiTracker:
     Objects may also be added from meshes and seeded with `set_poses`.
 
     All objects share one refiner; per object there are its mesh tensors,
-    diameter and centering transform, and its row of the pose block."""
+    diameter and centering transform, and its row of the pose block.
+    Each frame replays one captured step (step_graphs.py) of its path,
+    object count, size and iterations; add_object, from_estimators and any
+    assignment of the refiner, the config or the render meshes clear them."""
 
     def __init__(self, meshes: Sequence[TriMesh] | None = None, cfg: EstimatorCfg | None = None,
                  refiner_params=None, device: str | torch.device = "cuda"):
+        self._graphs = StepGraphs()
         self.device = default_device(device)
         self.cfg = cfg or EstimatorCfg()
         self.has_refiner = refiner_params is not None
@@ -238,7 +286,7 @@ class MultiTracker:
         self.mesh_tensors.append(make_mesh_tensors(render_src, self.cfg.max_tex_size, self.device))
         self.diameters.append(float(diameter))
         self.tf_to_centered.append(tf)
-        self._upload_diameters()
+        self._objects_changed()
         return len(self.mesh_tensors) - 1
 
     @classmethod
@@ -283,11 +331,14 @@ class MultiTracker:
             t.tf_to_centered.append(est.get_tf_to_centered_mesh())
         t.poses_last = torch.stack([e.pose_last.to(torch.float32) for e in estimators])
         t._pose_hints = t.poses_last.cpu().numpy().astype(np.float64)
-        t._upload_diameters()
+        t._objects_changed()
         return t
 
-    def _upload_diameters(self):
+    def _objects_changed(self):
+        """Upload the diameters and drop the captured steps, which read the
+        render meshes by address."""
         self._diam = torch.tensor(self.diameters, dtype=torch.float32, device=self.device)
+        self._graphs.clear()
 
     @property
     def n_objects(self) -> int:
@@ -350,12 +401,14 @@ class MultiTracker:
             buf = self._uploads.upload(h * w * 5 + TRACK_PACK_FOOTER,
                                        lambda out: pack_track_frame(rgb, depth, 0, 0, out=out))
             return multi_track_graph_packed(self.refiner, self.cfg, meshes, poses_in,
-                                            self._K_device(K_full), buf, self._diam, (h, w), iters)
+                                            self._K_device(K_full), buf, self._diam, (h, w), iters,
+                                            graphs=self._graphs)
         dev = self.device
         return multi_track_graph(
             self.refiner, self.cfg, meshes, poses_in, torch.as_tensor(K_full, device=dev),
             torch.as_tensor(rgb, dtype=torch.uint8, device=dev),
             torch.as_tensor(depth, dtype=torch.float32, device=dev), self._diam, iters,
+            graphs=self._graphs,
         )
 
     def _windows(self, poses_in, K_full, rgb, depth, roi, iters):
@@ -369,7 +422,7 @@ class MultiTracker:
             )
             return multi_track_roi_graph_packed(self.refiner, self.cfg, meshes, poses_in,
                                                 self._K_device(K_full), buf, self._diam, size,
-                                                iters)
+                                                iters, graphs=self._graphs)
         dev = self.device
         rgb_w = np.stack([rgb[y0 : y0 + size, x0 : x0 + size] for x0, y0 in zip(x0s, y0s)])
         depth_w = np.stack([depth[y0 : y0 + size, x0 : x0 + size] for x0, y0 in zip(x0s, y0s)])
@@ -380,6 +433,7 @@ class MultiTracker:
             self.refiner, self.cfg, meshes, poses_in, torch.as_tensor(Ks, device=dev),
             torch.as_tensor(rgb_w, dtype=torch.uint8, device=dev),
             torch.as_tensor(depth_w, dtype=torch.float32, device=dev), self._diam, iters,
+            graphs=self._graphs,
         )
 
     @torch.inference_mode()

@@ -137,8 +137,8 @@ def test_funneled_register_matches_cpu(card):
 
 def test_track_chain_replays_per_frame_packed(card):
     """track_chain_graph on the card (one tracking step captured in a CUDA
-    graph, replayed once per frame) against track_graph_packed called per
-    frame: bit-equal trajectories; K1 and K2 launched while capturing."""
+    graph, replayed once per frame) against track_packed_body, the eager
+    step, called per frame: bit-equal trajectories; K1 and K2 counted."""
     import dataclasses
 
     from chip_smoke import K_SMALL, _estimator, _frame, _small_scene
@@ -155,8 +155,8 @@ def test_track_chain_replays_per_frame_packed(card):
     seq, p = [], pose0
     with torch.inference_mode():
         for b in bufs:
-            p = graph.track_graph_packed(*args, p, K, torch.as_tensor(b, device=card), est._diam,
-                                         (120, 160), 2)
+            p = graph.track_packed_body(*args, p, K, torch.as_tensor(b, device=card), est._diam,
+                                        (120, 160), 2)
             seq.append(p)
     r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
     chain = graph.track_chain_graph(*args, pose0, K, bufs, est._diam, (120, 160), 2)
@@ -164,6 +164,40 @@ def test_track_chain_replays_per_frame_packed(card):
     assert raster_cuda.KERNEL.launches > r0 and attention_cuda.KERNEL.launches > a0
     assert torch.equal(chain, torch.stack(seq))
     assert (chain[-1] - chain[0]).abs().max().item() > 1e-4
+
+
+def test_captured_steps_match_eager_bodies_and_count_replays(card):
+    """Every captured tracking step (pipeline/step_graphs.py) bit-equal to
+    its eager body on the card, on two frames (the capture, then a replay
+    on new inputs); a replay adds the K1 / K2 launches its capture recorded
+    (2 and 4 a tracked frame of 2 iterations; 2M and 4 for M objects)."""
+    from chip_smoke import K_SMALL, _estimator, _frame, _small_scene, captured_against_eager
+    from foundationpose_torch.pipeline import MultiTracker
+
+    box, cfg, _frame0 = _small_scene()
+    est = _estimator(box, cfg, card, head_scale=0.05)
+    est.pose_last = torch.eye(4, device=card)
+    est.pose_last[:3, 3] = torch.tensor([0.012, -0.018, 0.86])
+    multi = MultiTracker(meshes=[box, box], cfg=cfg, refiner_params=est.refiner, device=card)
+    poses = np.tile(np.eye(4), (2, 1, 1))
+    poses[:, :3, 3] = [[-0.05, 0.0, 0.9], [0.06, -0.01, 0.95]]
+    multi.set_poses(poses)
+    frames = [_frame(box, (0.01 + 0.003 * i, -0.02, 0.85), (120, 160), K_SMALL, "cpu")
+              for i in range(2)]
+    paths = captured_against_eager(est, multi, frames, K_SMALL, (64, 96))
+    assert len(paths) == 8
+    for name, (got, want, graphs) in paths.items():
+        assert torch.equal(got, want), name
+        assert len(graphs) == 1, name
+    for name, per_replay in (("track_packed (full frame)", (2, 4)),
+                             ("multi_packed (full frame)", (4, 4))):
+        (_key, step), = paths[name][2].items()
+        assert dict(step.launches) == {raster_cuda.KERNEL: per_replay[0],
+                                       attention_cuda.KERNEL: per_replay[1]}
+        r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
+        step(*[x.clone() for x in step.inputs])
+        torch.cuda.synchronize()
+        assert (raster_cuda.KERNEL.launches - r0, attention_cuda.KERNEL.launches - a0) == per_replay
 
 
 def _row_bound(abs_sum):
