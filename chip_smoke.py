@@ -55,15 +55,27 @@ their records stay comparable; phase 9 runs the defaults.
    wall time, the packed register on its window (the default) in turns
    with this unpacked one (10 each), per-frame track time, stage times,
    and 3 traced registers (device busy time and idle share, the kernels
-   and operators that own the device time);
+   and operators that own the device time); the first register of an
+   estimator runs its step's body eagerly, the second captures it, later
+   ones replay it (pipeline/step_graphs.py);
+7b. the register's captured steps: a replayed register counted as a path
+   of its own (K1 6, K2 12) and dispatched under
+   set_sync_debug_mode("error"), unpacked and on a 384-px packed window;
+   each bit-equal to its eager body; the first, second and steady
+   register of fresh estimators in turns with the eager body's (the first
+   within 1.10x, the steady no slower) and the capture's time; one
+   estimator's pool after registers at the 256- and 384-px windows and the
+   full frame and a 12-frame video, at most 1.25x one register key's pool
+   alone; the eager body's trace;
 8. estimator completion: reference-style checkpoints (`.pth` + config.yml
    with BatchNorm and the 6d rotation, seeded full-width nets) loaded on
    the card through cli.run_demo.build_estimator, bit-equal and with
    their configs; save_weights -> .npz -> load_weights bit-equal; a .npz
    embedding a reference config; then the funneled register
    (EstimatorCfg.fast_register) at the main path's workload with K1 and
-   K2 counted around it, and its time beside the full register's, timed
-   in turns;
+   K2 counted around it, its captured step bit-equal to its eager body
+   and counted on a replay (K1 7, K2 12), and its time beside the full
+   register's, timed in turns;
 9. video tracking: the full-width estimator (seeded weights, live delta
    heads) on a 30-frame 640x480 video of the bench mesh rendered by K1,
    every tracking step replayed from a CUDA graph captured once per
@@ -150,7 +162,8 @@ their records stay comparable; phase 9 runs the defaults.
    against the unsharded estimator at the main path's workload in f32, the
    network scorer spread by `spread_scorer` on the register's crops: the
    same order and poses within 1e-4, full, funneled (fast_register) and
-   packed; K1 and K2 counted per sharded register; the full and funneled
+   packed; K1 and K2 counted per sharded register; each sharded register's
+   captured step bit-equal to its eager body; the full and funneled
    registers timed in turns with the unsharded ones (two shards of one card
    measure the split's overhead, not scaling); (b) 2 refiner and 2 scorer
    steps of (b) above, data-parallel over 2 shards of the card against the
@@ -168,7 +181,8 @@ their records stay comparable; phase 9 runs the defaults.
    depth panels within one JET step, on all but 1e-3 of the pixels: K1's
    criterion admits edge pixels covered otherwise); (e) warp_perspective and
    warp_perspective_batch, card against CPU; (f) a profiling.trace() of one
-   register names K1 and K2, and a stage_timer around another.
+   register, replayed from its step, names K1 and K2, and a stage_timer
+   around another.
 
 Every kernel's bound is computed from this run's inputs (`bound`: the
 bytes it must move over the memory rate or its operations over the peak
@@ -780,8 +794,8 @@ def main_path_phase():
     for p in [pose] + tracked:
         if not (p.shape == (4, 4) and np.isfinite(p).all() and abs(p[2, 3] - 0.9) < 0.2):
             raise AssertionError(f"main path pose out of bounds:\n{p}")
-    if counts_reg[0] < 6 or counts_reg[1] < 12:
-        raise AssertionError(f"register launched too few kernels: {counts_reg}")
+    if counts_reg != (6, 12):  # the first register runs its step's body once
+        raise AssertionError(f"register launched {counts_reg}, not K1 6 and K2 12")
     if counts["raster"] - counts_reg[0] < 6 or counts["attention"] - counts_reg[1] < 12:
         raise AssertionError(f"tracking launched too few kernels: {counts}")
     return counts, est, frame, n_hyp
@@ -881,7 +895,7 @@ def timing_phase(est, frame, n_hyp):
         t["stage_score_fwd_ms"] = _event_ms(lambda: est.scorer(a, b, dtype=torch.bfloat16), reps=5)
 
     reg = []
-    est.register(K_FULL, *frame, iteration=5)  # warm-up
+    est.register(K_FULL, *frame, iteration=5)  # warm-up: the second register captures its step
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -900,6 +914,7 @@ def timing_phase(est, frame, n_hyp):
           f"{est.best_id}), |dt| {np.abs(p_packed[:3, 3] - p_unpacked[:3, 3]).max() * 1e3:.4f} mm")
     if roi is None or packed.register_roi_recoveries:
         raise AssertionError("the packed register did not run on its window")
+    packed.register(K_FULL, *frame, iteration=5)  # its step's capture
     t.update({f"register_{k}_ms_in_turns_median10": v for k, v in _wall_in_turns({
         "unpacked": lambda: est.register(K_FULL, *frame, iteration=5),
         "packed_roi": lambda: packed.register(K_FULL, *frame, iteration=5),
@@ -918,6 +933,212 @@ def timing_phase(est, frame, n_hyp):
     t.update(_profile("register", lambda: est.register(K_FULL, *frame, iteration=5), 3))
     _print_times(t)
     return t
+
+
+# ------------------------------------------------ the register's captured steps
+
+
+def _register_steps(e):
+    """[(key, StepGraph)] of e's register keys."""
+    return [(k, g) for k, g in e._graphs.items() if k[0][0].startswith("register")]
+
+
+def _tracking_steps(graphs):
+    """[(key, StepGraph)] of a StepGraphs' tracking keys."""
+    return [(k, g) for k, g in graphs.items() if not k[0][0].startswith("register")]
+
+
+def _pool_bytes(graphs):
+    """Bytes that the segments of a StepGraphs' memory pool hold on the card."""
+    import torch
+
+    if graphs._pool is None:
+        return 0
+    pool = tuple(graphs._pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def _eager_register(e, frame):
+    """e.register on its eager sharded body, the branch that a mesh of
+    distinct cards takes: the register without its captured step, for
+    comparison."""
+    e._mesh_on_one_device = lambda: False
+    try:
+        return e.register(K_FULL, *frame, iteration=5)
+    finally:
+        del e._mesh_on_one_device
+
+
+def _against_eager(name, e, frame):
+    """e's register replayed from its captured step against its eager body
+    on the same frame: order, poses and scores bit-equal. Returns the
+    replayed register's step (its key's StepGraph)."""
+    import torch
+
+    pose = e.register(K_FULL, *frame, iteration=5)
+    got = (e.order.clone(), e.poses.clone(), e.scores.clone())
+    used = [(k, g) for k, g in _register_steps(e) if g.graph is not None]
+    pose_eager = _eager_register(e, frame)
+    same = all(torch.equal(a, b) for a, b in zip(got, (e.order, e.poses, e.scores)))
+    print(f"  {name}: captured register against its eager body bit-equal {same} (order, "
+          f"{len(got[1])} poses, scores), pose max |d| {float(np.abs(pose - pose_eager).max()):.3e}; "
+          f"captured steps " + ", ".join(f"{k[0]} {g.capture_ms:.1f} ms" for k, g in used))
+    if not (same and used):
+        raise AssertionError(f"{name}: the captured register differs from its eager body")
+    return used
+
+
+def register_steps_phase(est, frame):
+    """The register's captured steps at the main path's workload (est: the
+    main path's estimator, UNPACKED uploads, its step captured by the
+    timing phase's second register):
+    (a) a register replayed from its step launches K1 6 and K2 12 (counted
+        as the main path's), and dispatches without host synchronisation;
+    (b) the unpacked and the 384-px packed window register bit-equal to
+        their eager bodies;
+    (c) the first, second and steady-state register of fresh estimators in
+        turns with the eager body's, and the capture's time;
+    (d) one estimator's pool after registers at two window sizes and the
+        full frame (each captured) and a tracked video, against one key's
+        pool alone ((c));
+    (e) where the eager body's time goes (trace)."""
+    import gc
+
+    import torch
+
+    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.pipeline import graph as g
+
+    t = {}
+    mesh = est.mesh_ori
+
+    def reg(e, fr=frame):
+        return e.register(K_FULL, *fr, iteration=5)
+
+    # (a) the main path's register, replayed
+    torch.cuda.synchronize()
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+    pose = reg(est)
+    torch.cuda.synchronize()
+    k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    (key, step), = _register_steps(est)
+    print(f"  launches of a register replayed from its step {key[0]}: K1 {k[0]} K2 {k[1]}")
+    if k != (6, 12) or step.graph is None or not np.isfinite(pose).all():
+        raise AssertionError(f"the replayed register launched {k}, not K1 6 and K2 12")
+    counts = {"raster": k[0], "attention": k[1]}
+    up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")  # noqa: E731
+    args = (est.refiner, est.scorer, est.cfg, est.mesh_tensors, est.rot_grid, est.hyp_valid,
+            up(K_FULL))
+    x = (up(frame[0]), up(frame[1]), up(frame[2]))
+    n_steps = len(est._graphs)
+    torch.cuda.synchronize()
+    with _no_sync():
+        out = g.register_graph(*args, *x, est._diam, 5, graphs=est._graphs)
+    same = bool(torch.equal(out[1], est.poses)) and len(est._graphs) == n_steps
+    print(f"  unpacked: a replayed register dispatched under set_sync_debug_mode('error'): no "
+          f"synchronisation, no new step, poses equal to its register's {same}")
+    if not same:
+        raise AssertionError("the replayed register's dispatch differs from its register")
+
+    # (b) captured against eager: unpacked, and the packed 384-px window
+    _against_eager("unpacked, full frame", est, frame)
+    packed = _tracker(est, **PACKED)
+    roi = packed._register_roi_window(K_FULL, frame[1], frame[2])
+    reg(packed)
+    reg(packed)
+    _against_eager(f"packed {roi[2]}-px window", packed, frame)
+    x0, y0, size = roi
+    win = (slice(y0, y0 + size), slice(x0, x0 + size))
+    buf = up(g.pack_register_frame(*(a[win] for a in frame), x0, y0))
+    p_args = (packed.refiner, packed.scorer, packed.cfg, packed.mesh_tensors, packed.rot_grid,
+              packed.hyp_valid, up(K_FULL))
+    torch.cuda.synchronize()
+    with _no_sync():
+        out = g.register_graph_packed(*p_args, buf, packed._diam, (size, size), 5,
+                                      graphs=packed._graphs)
+    same = bool(torch.equal(out[1], packed.poses)) and len(packed._graphs) == 1
+    print(f"  packed window: a replayed register dispatched under set_sync_debug_mode('error'): "
+          f"no synchronisation, no new step, poses equal to its register's {same}")
+    if not same or roi is None or packed.register_roi_recoveries:
+        raise AssertionError("the packed window's replayed register differs from its register")
+    del packed
+
+    # (c) fresh estimators in turns: the first, second and steady register
+    # through the step against the eager body's
+    walls = {}
+    for kind in ("step", "eager", "eager", "step", "step", "eager"):
+        e = _tracker(est)
+        call = (lambda: reg(e)) if kind == "step" else (lambda: _eager_register(e, frame))
+        for n in ("first", "second"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.setdefault((kind, n), []).append((time.perf_counter() - t0) * 1e3)
+        if kind == "step":
+            (key, step), = _register_steps(e)
+            walls.setdefault(("step", "capture"), []).append(step.capture_ms)
+            walls.setdefault(("step", "pool"), []).append(_pool_bytes(e._graphs))
+            if not (step.eager_runs == 1 and step.replays == 1):
+                raise AssertionError("the fresh estimator's step ran other than eager, then replayed")
+        del e, call
+        gc.collect()
+    steady = _wall_in_turns({"step": lambda: reg(est), "eager": lambda: _eager_register(est, frame)}, 6)
+    for n in ("first", "second"):
+        t[f"register_{n}_ms_in_turns"] = float(np.median(walls[("step", n)]))
+        t[f"register_eager_{n}_ms_in_turns"] = float(np.median(walls[("eager", n)]))
+    t["register_steady_ms_in_turns"] = steady["step"]
+    t["register_eager_steady_ms_in_turns"] = steady["eager"]
+    t["register_capture_ms"] = float(np.median(walls[("step", "capture")]))
+    t["register_key_pool_reserved_bytes"] = float(np.median(walls[("step", "pool")]))
+    ratio = t["register_first_ms_in_turns"] / t["register_eager_first_ms_in_turns"]
+    print(f"  fresh estimators, 3 of each in turns: first register {t['register_first_ms_in_turns']:.1f} "
+          f"ms against the eager body's {t['register_eager_first_ms_in_turns']:.1f} ({ratio:.3f}x), "
+          f"second {t['register_second_ms_in_turns']:.1f} against "
+          f"{t['register_eager_second_ms_in_turns']:.1f} (capture {t['register_capture_ms']:.1f} ms), "
+          f"steady {steady['step']:.1f} against {steady['eager']:.1f} (6 each)   [{_CARD}]")
+    if ratio > 1.10 or steady["step"] > steady["eager"]:
+        raise AssertionError("the first register costs over 1.10x the eager one, or a replay is "
+                             "slower than the eager register")
+
+    # (d) one estimator's pool: windows of two sizes, the full frame, a video
+    near = _frame(mesh, (0.02, -0.01, 0.5), (480, 640), K_FULL, "cuda")
+    far = _frame(mesh, (0.02, -0.01, 1.3), (480, 640), K_FULL, "cuda")
+    e = _tracker(est, **PACKED)
+    pools = []
+    for fr in (far, near, frame):
+        reg(e, fr)
+        reg(e, fr)
+        torch.cuda.synchronize()
+        roi_ = e._register_roi_window(K_FULL, fr[1], fr[2])
+        pools.append((roi_[2] if roi_ else "full frame", _pool_bytes(e._graphs)))
+    poses = _video_poses(12)
+    for r, d, _m in _render_video([mesh], [poses]):
+        e.track_one(r, d, K_FULL, iteration=2)
+    torch.cuda.synchronize()
+    pools.append(("video", _pool_bytes(e._graphs)))
+    keys = [k[0] for k, _g in e._graphs.items()]
+    share = pools[-1][1] / t["register_key_pool_reserved_bytes"]
+    print(f"  one estimator's pool after each register key and a 12-frame video: "
+          + ", ".join(f"{n} {b / 2**20:.1f} MiB" for n, b in pools)
+          + f"; {len(keys)} steps {keys}; {share:.3f}x one key's pool alone "
+          f"({t['register_key_pool_reserved_bytes'] / 2**20:.1f} MiB, (c))   [{_CARD}]")
+    for n, b in pools:
+        t[f"register_pool_after_{str(n).replace(' ', '_')}_bytes"] = b
+    t["register_pool_share_of_one_key"] = share
+    if not (len(_register_steps(e)) == 3 and all(st.graph is not None for _k, st in _register_steps(e))):
+        raise AssertionError(f"the pool's estimator did not capture 3 register keys: {keys}")
+    if share > 1.25:
+        raise AssertionError(f"the pool grew to {share:.3f}x one register key's")
+    del e
+    gc.collect()
+
+    # (e) where the eager body's time goes (the timing phase's "register"
+    # profile is the replayed register's)
+    t.update(_profile("register_eager", lambda: _eager_register(est, frame), 3))
+    _print_times(t)
+    return counts, t
 
 
 def _reference_checkpoints(root):
@@ -1056,8 +1277,20 @@ def completion_phase(est, frame):
 
     regs = {"full": est, "funneled": funnel}
     times = {k: [] for k in regs}
-    for e in regs.values():  # warm-up
+    for e in regs.values():  # warm-up (the funneled register's second: its step's capture)
         e.register(K_FULL, *frame, iteration=5)
+    (fkey, fstep), = _against_eager("funneled", funnel, frame)
+    torch.cuda.synchronize()
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+    funnel.register(K_FULL, *frame, iteration=5)
+    torch.cuda.synchronize()
+    replayed = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    print(f"  funneled: step {fkey[0]} captured in {fstep.capture_ms:.1f} ms, its pool "
+          f"{_pool_bytes(funnel._graphs) / 2**20:.1f} MiB, a replay launches K1 {replayed[0]} "
+          f"K2 {replayed[1]}   [{_CARD}]")
+    if replayed != (7, 12):
+        raise AssertionError(f"the funneled register's replay counted {replayed}, not K1 7 and K2 12")
+    counts = {"raster": counts["raster"] + replayed[0], "attention": counts["attention"] + replayed[1]}
     for name in ("full", "funneled", "funneled", "full"):
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1067,7 +1300,9 @@ def completion_phase(est, frame):
     t = {"register_ms_in_turns_median6": float(np.median(times["full"])),
          "register_funneled_ms": float(np.median(times["funneled"])),
          "register_funneled_hyp_per_s": n_hyp / float(np.median(times["funneled"])) * 1e3,
-         "funneled_k1_launches": counts["raster"], "funneled_k2_launches": counts["attention"]}
+         "funneled_k1_launches": replayed[0], "funneled_k2_launches": replayed[1],
+         "register_funneled_capture_ms": fstep.capture_ms,
+         "register_funneled_pool_reserved_bytes": _pool_bytes(funnel._graphs)}
     t.update(_profile("register_funneled", lambda: funnel.register(K_FULL, *frame, iteration=5), 3))
     _print_times(t)
     return counts, t
@@ -1448,7 +1683,7 @@ def video_phase():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t["track_roi_graph_pool_reserved_bytes"] = torch.cuda.memory_reserved() - reserved0
-    t["track_roi_graph_pool_steps"] = len(est._graphs)
+    t["track_roi_graph_pool_steps"] = len(_tracking_steps(est._graphs))
     _set_state(est, start)
     pipe_roi = counts.run("pipelined track_one_async (packed, window)", _pipelined_pass, est, video,
                           tracked=(est._graphs, n, step))
@@ -1576,13 +1811,14 @@ def video_phase():
     owners = {"windowed": est._graphs, "full-frame": full._graphs, "unpacked": unpacked._graphs,
               "chain": chain.graphs, "multi (window)": multi._graphs}
     for name, graphs in owners.items():
-        print(f"  (g) {name}: {len(graphs)} captured steps, "
-              + ", ".join(f"{k[0][1:]} {g.capture_ms:.1f} ms" for k, g in graphs.items()))
-    sizes = sorted(k[0][1] for k, _g in est._graphs.items())
-    t["track_roi_captured_steps"] = len(est._graphs)
+        print(f"  (g) {name}: {len(_tracking_steps(graphs))} captured steps, "
+              + ", ".join(f"{k[0][1:]} {g.capture_ms:.1f} ms" for k, g in _tracking_steps(graphs)))
+    steps = _tracking_steps(est._graphs)
+    sizes = sorted(k[0][1] for k, _g in steps)
+    t["track_roi_captured_steps"] = len(steps)
     t["track_roi_step_sizes"] = json.dumps(sizes)
-    t["track_roi_capture_ms_max"] = max(g.capture_ms for _k, g in est._graphs.items())
-    print(f"  (g) the windowed tracker: {len(est._graphs)} captured steps of sizes {sizes}; its "
+    t["track_roi_capture_ms_max"] = max(g.capture_ms for _k, g in steps)
+    print(f"  (g) the windowed tracker: {len(steps)} captured steps of sizes {sizes}; its "
           f"first pass captured {t['track_roi_graph_pool_steps']}, which reserved "
           f"{t['track_roi_graph_pool_reserved_bytes'] / 2**20:.1f} MiB")
 
@@ -2116,7 +2352,7 @@ def nerf_timing_phase(t, runner, cuda_runner, views, est, frame):
                     mt.vnormals, True, False, None, est.cfg.refiner.raster.cull_backfaces)
     t["k1_err_recon"] = _k1_prepared(f"reconstruction ({len(mt.faces)} faces), 32 register crops",
                                      prep, mt.tex if mt.uv is not None else None)
-    est.register(K_FULL, *frame, iteration=5)  # warm-up
+    est.register(K_FULL, *frame, iteration=5)  # warm-up: its step's capture
     reg = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2914,7 +3150,8 @@ def _sharded_register_check(counts):
     one = _estimator(mesh, base, "cuda")
     one.register(K_FULL, *frame, iteration=5)
     sc = base.scorer
-    Kt, rgb_t, depth_t = one._frame(K_FULL, frame[0], frame[1])
+    Kt, depth_t = (torch.as_tensor(a, device="cuda") for a in (K_FULL, frame[1]))
+    rgb_t = torch.as_tensor(frame[0], device="cuda").to(torch.float32) / 255.0
     with torch.no_grad():
         a, b, _ = make_crop_inputs(one.mesh_tensors, one.poses, Kt, rgb_t, depth_to_xyz_map(depth_t, Kt),
                                    one._diam, input_res=sc.input_res, crop_ratio=sc.crop_ratio,
@@ -2945,6 +3182,11 @@ def _sharded_register_check(counts):
               f"K1 {k1} K2 {k2} launches a sharded register")
         if not (same and d_pose < 1e-4 and d_all < 1e-4) or k1 < 12 or k2 < 12:
             raise AssertionError(f"the {name} sharded register disagrees with the unsharded one")
+        e1.register(K_FULL, *frame, iteration=5)  # the second registers capture their steps
+        e2.register(K_FULL, *frame, iteration=5)
+        (key2, _step2), = _against_eager(f"(a) {name} register, 2 shards of one card, f32", e2, frame)
+        if key2[0][-1] != 2:
+            raise AssertionError(f"the sharded register's step {key2[0]} is not over 2 shards")
         if name != "packed":
             tt = _wall_in_turns({f"register_{name}_f32_ms": lambda: e1.register(K_FULL, *frame, iteration=5),
                                  f"register_{name}_f32_2shards_ms":
@@ -3249,11 +3491,12 @@ def parallel_quad_tooling_phase():
     with tempfile.TemporaryDirectory() as tmp:
         _tooling_check(tmp)
     frame = _frame(_bench_mesh(), (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
+    one.register(K_FULL, *frame, iteration=5)  # its step's capture, outside the trace
     with profiling.trace(out_dir, name="register_f32"):
         one.register(K_FULL, *frame, iteration=5)
     text = open(os.path.join(out_dir, "register_f32.json")).read()
     named = {k: tag in text for k, tag in (("K1", "raster_kernel"), ("K2", "mha_"))}
-    print(f"  (f) profiling.trace of one register: {out_dir}/register_f32.json, "
+    print(f"  (f) profiling.trace of one register, replayed from its step: {out_dir}/register_f32.json, "
           f"{len(text) / 1e6:.1f} MB, names {named}")
     if not all(named.values()):
         raise AssertionError(f"the register's trace does not name every kernel: {named}")
@@ -3269,13 +3512,21 @@ def parallel_quad_tooling_phase():
 PROFILE_STEPS = 10
 
 
+# CUDA API calls (trace categories "cuda_*") by which the host puts work on
+# the card: a kernel launch, a graph launch, an asynchronous copy or memset.
+HOST_LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync", "LaunchCooperative")
+
+
 def _device_time_us(trace_path):
     """From a chrome trace written by torch.profiler: the union of the
-    device activity intervals (kernels, memsets, copies), their count, and
-    each kernel name's summed duration."""
+    device activity intervals (kernels, memsets, copies), their count,
+    each kernel name's summed duration, and the host's launches (CUDA API
+    calls of HOST_LAUNCH_CALLS)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     acts = [e for e in events if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    launches = sum(1 for e in events if e.get("cat", "").startswith("cuda_")
+                   and any(k in e.get("name", "") for k in HOST_LAUNCH_CALLS))
     busy, end = 0.0, -np.inf
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in acts):
         busy += max(0.0, b - max(a, end))
@@ -3284,7 +3535,7 @@ def _device_time_us(trace_path):
     for e in acts:
         if e["cat"] == "kernel":
             by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
-    return busy, len(acts), by_kernel
+    return busy, len(acts), by_kernel, launches
 
 
 def _profile(name, fn, n):
@@ -3317,12 +3568,13 @@ def _profile(name, fn, n):
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     path = os.path.join(out_dir, f"{name}_cuda_only.json")
     prof.export_chrome_trace(path)
-    busy_us, n_act, by_kernel = _device_time_us(path)
+    busy_us, n_act, by_kernel, n_launch = _device_time_us(path)
     if n_act == 0:
         raise AssertionError("the CUDA-only trace holds no device activity")
     busy_ms = busy_us / 1e3 / n
     print(f"  {name}: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
-          f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities per call")
+          f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities and "
+          f"{n_launch / n:.0f} host launches per call")
     ranked = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)
     ours = ("raster_kernel", "face_box_kernel", "mha_", "seg_add")  # the port's kernels, always
     share = {f"{name}_{k}_device_ms": sum(us for kn, us in by_kernel.items() if tag in kn) / 1e3 / n
@@ -3341,6 +3593,7 @@ def _profile(name, fn, n):
     return {f"{name}_ms_untraced_{n}": plain_ms,
             f"{name}_ms_cuda_traced": wall_ms,
             f"{name}_device_activities": n_act / n,
+            f"{name}_host_launches": n_launch / n,
             f"{name}_device_busy_ms": busy_ms,
             f"{name}_device_idle_share": 1.0 - busy_ms / wall_ms,
             **{k: v for k, v in share.items() if v > 0}}
@@ -3358,6 +3611,8 @@ def main():
     phase("small NeRF slice: card vs CPU plain path", 180, small_nerf_phase)
     counts, est, frame, n_hyp = phase("main path: register + 3 tracked frames", 300, main_path_phase)
     t = phase("timing", 300, timing_phase, est, frame, n_hyp)
+    rs_counts, t_rs = phase("the register's captured steps", 240, register_steps_phase, est, frame)
+    t.update(t_rs)
     fn_counts, t_fn = phase("estimator completion: checkpoints, funneled register", 240,
                             completion_phase, est, frame)
     t.update(t_fn)
@@ -3391,10 +3646,12 @@ def main():
     k1_err = max(k1_err, t["k1_err_timed_shape"], t["k1_err_recon"])
     kernels = [
         entry("K1 tile rasterizer", "raster.cu", "foundationpose_tpu/ops/pallas_raster2.py:69",
-              counts["raster"] + fn_counts["raster"] + vid_counts["raster"] + mf_counts["raster"]
+              counts["raster"] + rs_counts["raster"] + fn_counts["raster"] + vid_counts["raster"]
+              + mf_counts["raster"]
               + ep_counts["raster"] + tr_counts["raster"] + pq_counts["raster"], k1_err, "k1", t),
         entry("K2 attention core", "attention.cu", "foundationpose_tpu/ops/attention.py:44",
-              counts["attention"] + fn_counts["attention"] + vid_counts["attention"]
+              counts["attention"] + rs_counts["attention"] + fn_counts["attention"]
+              + vid_counts["attention"]
               + mf_counts["attention"] + ep_counts["attention"] + tr_counts["attention"]
               + pq_counts["attention"], max(k2_err, t["train_core_bfloat16_max_abs"]), "k2", t),
         # K3's times are those of the captured "cuda"-layout step's stream;

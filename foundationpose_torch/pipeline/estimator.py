@@ -20,7 +20,11 @@ Tracking is asynchronous: the pose chain stays on the device and each
 frame's pose streams back to pinned host memory while later frames run.
 Each tracking step replays a CUDA graph captured at the first frame of
 its window size (step_graphs.py); the window check, the full-frame
-re-run and the chain repair run on the host between replays.
+re-run and the chain repair run on the host between replays. A register
+dispatches one step too (`register_graph_packed` or `register_graph`),
+which runs eagerly at the first register of its window size and is
+captured at the second, so an estimator that registers once per video
+pays no capture.
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ from .graph import (
     pack_register_frame,
     pack_track_frame,
     register_body_sharded,
+    register_graph,
+    register_graph_packed,
     register_graph_packed_sharded,
     track_graph,
     track_graph_packed,
@@ -267,9 +273,9 @@ class FoundationPose(GraphOwner):
         mesh's first device, which also tracks. `debug` >= 2 writes crop
         canvases of each register to `debug_dir`, >= 3 also the posed mesh
         (utils/debug_vis.py)."""
-        # The captured tracking steps (step_graphs.py): reset_object,
-        # load_weights and any assignment of the refiner, the config or the
-        # render mesh clear them (GraphOwner).
+        # The captured register and tracking steps (step_graphs.py):
+        # reset_object, load_weights and any assignment of the refiner, the
+        # scorer, the config or the render mesh clear them (GraphOwner).
         self._graphs = StepGraphs()
         if device_mesh is None:
             device_mesh = (make_device_mesh(n_devices, device=device) if n_devices and n_devices > 1
@@ -389,13 +395,19 @@ class FoundationPose(GraphOwner):
         self.rot_grid = torch.as_tensor(rot_grid, dtype=torch.float32, device=self.device)
         logger.info("rotation grid: %d (+%d pad)", n, pad)
 
+    def _mesh_on_one_device(self) -> bool:
+        """Is every device of the mesh the estimator's own? Then each shard
+        reads the estimator's own nets and meshes (`replicate_tree` hands
+        them over), and the register runs as a captured step."""
+        return all(d == self.device for d in self.device_mesh.devices)
+
     def _shards(self):
-        """The register's inputs on the mesh, made again for each register
-        so that a net changed in place, a new render mesh or a new
-        rotation grid reaches every device: per mesh device (refiner,
-        scorer, mesh tensors, diameter), and the rows of the rotation grid
-        and of its validity. A device that is the first one's gets the
-        estimator's own objects, so an unsharded register copies nothing."""
+        """The eager register's inputs on a mesh of distinct cards, made
+        again for each register so that a net changed in place, a new
+        render mesh or a new rotation grid reaches every device: per mesh
+        device (refiner, scorer, mesh tensors, diameter), and the rows of
+        the rotation grid and of its validity. A device that is the first
+        one's gets the estimator's own objects."""
         mesh = self.device_mesh
         replicas = list(zip(*(replicate_tree(t, mesh) for t in (
             self.refiner, self.scorer, self.mesh_tensors, self._diam))))
@@ -450,13 +462,6 @@ class FoundationPose(GraphOwner):
         return np.linalg.norm(pred - gt_pts[None], axis=-1).mean(axis=-1)
 
     # --------------------------------------------------------- inference
-
-    def _frame(self, K, rgb, depth):
-        dev = self.device
-        K_t = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-        rgb_t = torch.as_tensor(np.asarray(rgb, np.uint8), device=dev).to(torch.float32) / 255.0
-        depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
-        return K_t, rgb_t, depth_t
 
     def _K_device(self, K: np.ndarray) -> torch.Tensor:
         """The full-frame K on the device, uploaded again only when it changes."""
@@ -519,6 +524,34 @@ class FoundationPose(GraphOwner):
             roi_contains_pose(p, K, H, W, roi, self.diameter, ratio) for p in poses[valid]
         )
 
+    def _register_step(self, K_t, iters, buf=None, hw=None, frame=None):
+        """One register on the mesh, of a packed buffer `buf` of an (h, w)
+        window or of an unpacked `frame` (rgb u8, depth f32, mask): the
+        step `register_graph_packed` or `register_graph` replayed from the
+        estimator's cache. Returns (order, refined, scores, center, n_valid).
+
+        On a mesh of distinct cards it runs the eager sharded body instead:
+        the replicas on the other cards are made anew at every register
+        (`_shards`), so that weights changed in place and a new render mesh
+        reach them, and a step captured over them would keep reading the
+        copies of its capture."""
+        if not self._mesh_on_one_device():
+            replicas, rot_parts, valid_parts = self._shards()
+            if buf is not None:
+                return register_graph_packed_sharded(replicas, self.cfg, rot_parts, valid_parts,
+                                                     K_t, buf, hw, iters)
+            rgb_u8, depth_t, mask_t = frame
+            rgb_t = rgb_u8.to(torch.float32) / 255.0
+            frames = [tuple(t.to(r.device) for t in (K_t, rgb_t, depth_t, mask_t))
+                      for r in rot_parts]
+            return register_body_sharded(replicas, self.cfg, rot_parts, valid_parts, frames, iters)
+        args = (self.refiner, self.scorer, self.cfg, self.mesh_tensors, self.rot_grid,
+                self.hyp_valid, K_t)
+        kw = dict(graphs=self._graphs, shards=self.device_mesh.size)
+        if buf is not None:
+            return register_graph_packed(*args, buf, self._diam, hw, iters, **kw)
+        return register_graph(*args, *frame, self._diam, iters, **kw)
+
     @torch.inference_mode()
     def register(self, K, rgb, depth, ob_mask, ob_id=None, iteration=5) -> np.ndarray:
         """Single-frame pose estimation (estimater.py:159-240)."""
@@ -550,9 +583,7 @@ class FoundationPose(GraphOwner):
                 lambda out: pack_register_frame(rgb_w, depth_w.astype(np.float32), mask_w,
                                                 x0, y0, out=out),
             )
-            replicas, rot_parts, valid_parts = self._shards()
-            return register_graph_packed_sharded(replicas, self.cfg, rot_parts, valid_parts, K_t,
-                                                 buf, (h, w), iters)
+            return self._register_step(K_t, iters, buf=buf, hw=(h, w))
 
         if self.cfg.register_pack and depth_np.size % 8 == 0:
             roi = self._register_roi_window(K_np, depth_np, mask_np)
@@ -562,11 +593,11 @@ class FoundationPose(GraphOwner):
                 self.register_roi_recoveries += 1
                 out = run_packed(None)
         else:
-            _, rgb_t, depth_t = self._frame(K_np, rgb_np, depth_np)
-            mask_t = torch.as_tensor(mask_np, device=self.device)
-            replicas, rot_parts, valid_parts = self._shards()
-            frames = [tuple(t.to(r.device) for t in (K_t, rgb_t, depth_t, mask_t)) for r in rot_parts]
-            out = register_body_sharded(replicas, self.cfg, rot_parts, valid_parts, frames, iters)
+            dev = self.device
+            out = self._register_step(K_t, iters, frame=(
+                torch.as_tensor(np.asarray(rgb_np, np.uint8), device=dev),
+                torch.as_tensor(np.asarray(depth_np, np.float32), device=dev),
+                torch.as_tensor(mask_np, device=dev)))
         order, refined, scores, center, _n = out
         self.poses = refined
         self.scores = scores

@@ -6,11 +6,13 @@ device mesh, which may hold one device), `track_body`, `device_guess_translation
 formats (`pack_track_frame`, `pack_register_frame` on the host, their
 inverses on the device), the packed register and `track_chain_graph`.
 Each body is a plain function of tensors, run eagerly; no step copies a
-value to the host. `track_graph` and `track_graph_packed`, as the JAX
-package jit-compiles them, run their body as one captured step
-(`step_graphs.py`: a CUDA graph per static shape, replayed per call);
-`TrackChain` replays one such step once per frame: the counterpart of
-the JAX package's `lax.scan` over staged frames.
+value to the host. `register_graph`, `register_graph_packed`,
+`track_graph` and `track_graph_packed`, as the JAX package jit-compiles
+them, run their body as one captured step (`step_graphs.py`: a CUDA graph
+per static shape, replayed per call; a register step runs eagerly at its
+first call and is captured at its second); `TrackChain` replays one
+tracking step once per frame: the counterpart of the JAX package's
+`lax.scan` over staged frames.
 """
 from __future__ import annotations
 
@@ -36,7 +38,9 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
 
     The median is the JAX package's two-pass 256-bin counting bisection
     (each pass narrows the range 256x with one (pixels x 256) compare),
-    reproduced step for step: torch.median takes another order statistic."""
+    reproduced step for step: torch.median takes another order statistic.
+    Constants are filled on the device and bins picked by index_select,
+    so a register step captures it: no host copy, no host read."""
     H, W = depth.shape
     dev = depth.device
     m = mask > 0
@@ -45,7 +49,7 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
     row_any = torch.any(m, dim=1)
     ui = torch.arange(W, dtype=torch.float32, device=dev)
     vi = torch.arange(H, dtype=torch.float32, device=dev)
-    big = torch.tensor(1e9, dtype=torch.float32, device=dev)
+    big = torch.full((), 1e9, dtype=torch.float32, device=dev)
     umin = torch.amin(torch.where(col_any, ui, big))
     umax = torch.amax(torch.where(col_any, ui, -big))
     vmin = torch.amin(torch.where(row_any, vi, big))
@@ -56,7 +60,7 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
     vals = depth.reshape(-1).to(torch.float32)
     vmask = valid.reshape(-1)
     n = torch.sum(vmask).to(torch.int32)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
     lo0 = torch.amin(torch.where(vmask, vals, inf))
     hi0 = torch.amax(torch.where(vmask, vals, -inf))
     edges = torch.arange(1, 257, dtype=torch.float32, device=dev) / 256.0
@@ -67,8 +71,9 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
             t = lo + (hi - lo) * edges  # (256,) upper bin edges
             cnt = torch.sum(vmask[:, None] & (vals[:, None] <= t[None]), dim=0)
             b = torch.argmax((cnt > k).to(torch.int32))  # first bin past k
-            lo = torch.where(b > 0, t[torch.clamp(b - 1, min=0)], lo)
-            hi = t[b]
+            below, edge = t.index_select(0, torch.stack([torch.clamp(b - 1, min=0), b]))
+            lo = torch.where(b > 0, below, lo)
+            hi = edge
         return hi
 
     k1 = torch.clamp((n - 1) // 2, min=0)
@@ -118,12 +123,7 @@ def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid
         poses[:, :3, 3] = center[None]
         shards.append(_Shard(ref, sco, mesh, diam, K, rgb, xyz_map, poses, center, n_valid))
     hyp_valid = torch.cat([v.to(first) for v in hyp_valid_parts])
-    n_hyp = hyp_valid.shape[0]
-    prune = (
-        cfg.prune_after_iter is not None
-        and iterations > cfg.prune_after_iter
-        and cfg.prune_keep < n_hyp
-    )
+    prune = funnel_of(cfg, iterations, hyp_valid.shape[0]) is not None
 
     def refine(parts, n):
         return [
@@ -177,6 +177,15 @@ class _Shard(NamedTuple):
     n_valid: torch.Tensor
 
 
+def funnel_of(cfg: EstimatorCfg, iterations: int, n_hyp: int):
+    """(prune_after_iter, prune_keep) when a register of `iterations` over
+    `n_hyp` hypotheses is funneled, else None."""
+    if (cfg.prune_after_iter is not None and iterations > cfg.prune_after_iter
+            and cfg.prune_keep < n_hyp):
+        return cfg.prune_after_iter, cfg.prune_keep
+    return None
+
+
 def funnel_keep(pre: torch.Tensor, keep: int) -> torch.Tensor:
     """The `keep` survivors: highest depth score first, the lower index
     first on a tie, as jax.lax.top_k orders them (torch.topk gives no tie
@@ -195,7 +204,7 @@ def funnel_order(pre, sub_scores, keep_idx, hyp_valid):
     above every pruned row; the order is computed here, never through
     that offset (+1e5 rounds f32 logits to ~0.008)."""
     n_keep = keep_idx.shape[0]
-    neg_inf = torch.tensor(float("-inf"), dtype=pre.dtype, device=pre.device)
+    neg_inf = torch.full((), float("-inf"), dtype=pre.dtype, device=pre.device)
     scores = pre.index_copy(0, keep_idx, sub_scores + 1e5)
     surv_key = torch.where(hyp_valid[keep_idx], sub_scores, neg_inf)
     surv_ids = keep_idx[torch.argsort(-surv_key, stable=True)]
@@ -335,6 +344,67 @@ def register_graph_packed_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, h
             per_device[d] = (shift_principal_point(K.to(d), x0, y0), rgb, depth_raw, mask)
         frames.append(per_device[d])
     return register_body_sharded(replicas, cfg, rot_grid_parts, hyp_valid_parts, frames, iterations)
+
+
+def _one_device_shards(refiner_net, scorer_net, mesh, diam, rot_grid, hyp_valid, shards):
+    """The register's per-shard arguments when every shard lies on the
+    inputs' device (a mesh that repeats one device): the same nets, mesh
+    and diameter for each, and the hypotheses split in `shards` rows."""
+    return ([(refiner_net, scorer_net, mesh, diam)] * shards, torch.chunk(rot_grid, shards),
+            torch.chunk(hyp_valid, shards))
+
+
+def _register_key(path, cfg: EstimatorCfg, rot_grid, iterations: int, shards: int, *sizes):
+    """What jax.jit keys a register on, besides the inputs' shapes and
+    dtypes (which StepGraphs adds): the path, the packed frame's (h, w),
+    the iterations, the funnel ((prune_after_iter, prune_keep), or None
+    for a full register) and the shard count."""
+    if rot_grid.shape[0] % shards:
+        raise ValueError(f"{rot_grid.shape[0]} hypotheses do not split over {shards} shards")
+    return (path, *sizes, iterations, funnel_of(cfg, iterations, rot_grid.shape[0]), shards)
+
+
+def register_graph(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid, K,
+                   rgb_u8, depth_raw, mask, mesh_diameter, iterations,
+                   graphs: StepGraphs | None = None, shards: int = 1):
+    """The unpacked-upload register (K of the frame, rgb u8 (H, W, 3),
+    depth f32 (H, W), mask (H, W)) as one captured step (`step_graphs`),
+    replayed from `graphs`, an owner's cache: register_body_sharded over
+    `shards` shards of the inputs' device. The step runs eagerly at its
+    first call and is captured at its second. Returns fresh (order,
+    refined_sorted, scores_sorted, center, n_valid)."""
+    iterations, shards = int(iterations), int(shards)
+
+    def body(rot_grid, hyp_valid, K, rgb_u8, depth_raw, mask, diam):
+        rgb = rgb_u8.to(torch.float32) / 255.0
+        replicas, rot_parts, valid_parts = _one_device_shards(refiner_net, scorer_net, mesh, diam,
+                                                              rot_grid, hyp_valid, shards)
+        return register_body_sharded(replicas, cfg, rot_parts, valid_parts,
+                                     [(K, rgb, depth_raw, mask)] * shards, iterations)
+
+    return run_step(graphs, _register_key("register", cfg, rot_grid, iterations, shards),
+                    (refiner_net, scorer_net, cfg, mesh), body, rot_grid, hyp_valid, K, rgb_u8,
+                    depth_raw, mask, mesh_diameter, eager_first=True)
+
+
+def register_graph_packed(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid,
+                          K, buf, mesh_diameter, hw, iterations,
+                          graphs: StepGraphs | None = None, shards: int = 1):
+    """The packed-upload register (a pack_register_frame buffer of an
+    (h, w) window, K of the full frame: its principal point is shifted by
+    the packed offset) as one captured step, replayed from `graphs` (see
+    register_graph)."""
+    hw, iterations, shards = tuple(hw), int(iterations), int(shards)
+
+    def body(rot_grid, hyp_valid, K, buf, diam):
+        replicas, rot_parts, valid_parts = _one_device_shards(refiner_net, scorer_net, mesh, diam,
+                                                              rot_grid, hyp_valid, shards)
+        return register_graph_packed_sharded(replicas, cfg, rot_parts, valid_parts, K, buf, hw,
+                                             iterations)
+
+    return run_step(graphs, _register_key("register_packed", cfg, rot_grid, iterations, shards, hw),
+                    (refiner_net, scorer_net, cfg, mesh), body, rot_grid, hyp_valid, K, buf,
+                    mesh_diameter, eager_first=True)
 
 
 def track_packed_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, buf,

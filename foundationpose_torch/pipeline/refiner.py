@@ -33,7 +33,9 @@ def apply_pose_delta(
             diam = torch.as_tensor(mesh_diameter, dtype=torch.float32, device=poses.device)
             trans_delta = trans * (diam / 2.0)
         else:
-            tn = torch.tensor(cfg.trans_normalizer, dtype=torch.float32, device=poses.device)
+            # filled on the device (no host copy: a captured step holds it)
+            tn = torch.stack([torch.full((), float(v), dtype=torch.float32, device=poses.device)
+                              for v in cfg.trans_normalizer])
             trans_delta = torch.tanh(trans) * tn
     elif cfg.trans_rep == "deepim":
         # uv shift in crop pixels + relative z scale

@@ -339,3 +339,39 @@ def test_hashgrid_backward_launches_k3_k4(card):
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         assert torch.isfinite(emb.grad).all() and emb.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("uploads", ["unpacked", "packed"])
+def test_register_step_captured_at_the_second_call(card, uploads):
+    """An estimator's register step on the card (test width, f32): the
+    first register runs the step's body eagerly (no graph), the second
+    captures it, the third replays it; each is bit-equal to the eager
+    sharded body (the branch a mesh of distinct cards takes), and each
+    counts the eager body's K1 and K2 launches (the capture counts
+    nothing, its replay adds what the capture recorded)."""
+    import dataclasses
+
+    from chip_smoke import K_SMALL, _estimator, _small_scene
+
+    box, cfg, frame = _small_scene()
+    if uploads == "packed":
+        cfg = dataclasses.replace(cfg, register_pack=True)
+    est = _estimator(box, cfg, card, head_scale=0.05)
+
+    def counted(register):
+        r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
+        register(K_SMALL, *frame, iteration=2)
+        torch.cuda.synchronize()
+        return raster_cuda.KERNEL.launches - r0, attention_cuda.KERNEL.launches - a0
+
+    est._mesh_on_one_device = lambda: False
+    eager = counted(est.register)
+    del est._mesh_on_one_device
+    want = (est.order.clone(), est.poses.clone(), est.scores.clone())
+    assert len(est._graphs) == 0 and eager[0] > 0 and eager[1] > 0
+    for call in range(3):
+        assert counted(est.register) == eager
+        (_key, step), = est._graphs.items()
+        assert (step.graph is None) == (call == 0)
+        assert (step.eager_runs, step.replays) == (1, call)
+        assert all(torch.equal(a, b) for a, b in zip((est.order, est.poses, est.scores), want))
