@@ -1,0 +1,6 @@
+"""register_ms (ms): the window's seconds on the host clock over the registers completed
+in it, closed loop; the window ends once the device has finished."""
+
+
+def read(ctx):
+    return ctx.untraced.seconds / ctx.untraced.served * 1e3
