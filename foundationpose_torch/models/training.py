@@ -20,6 +20,10 @@ Two properties of the JAX package are kept:
   `torch.optim.Adam` / `torch.optim.AdamW` compute the same update; they
   round it in another order (the bias corrections in f64 on the host,
   sqrt(nu) / sqrt(1 - b2^t) in place of sqrt(nu / (1 - b2^t))).
+
+While `utils/profiling.py` records, an unsharded step is a request of
+kind "train" with the device stages `train.forward` (the loss),
+`train.backward` and `train.adam` (the optimizer step), timed by events.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn as nn
 from .. import torch_config  # noqa: F401
 from ..parallel.sharding import replicate_tree
 from ..torch_config import default_device
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +98,13 @@ def score_loss_fn(module: nn.Module, batch: dict, dtype) -> torch.Tensor:
 
 def _step(optimizer, loss_of):
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_of()
-    loss.backward()
-    optimizer.step()
+    with profiling.request("train"), profiling.stages(optimizer.param_groups[0]["params"][0].device):
+        profiling.mark("train.forward")
+        loss = loss_of()
+        profiling.mark("train.backward")
+        loss.backward()
+        profiling.mark("train.adam")
+        optimizer.step()
     return loss.detach()
 
 

@@ -25,6 +25,16 @@ dispatches one step too (`register_graph_packed` or `register_graph`),
 which runs eagerly at the first register of its window size and is
 captured at the second, so an estimator that registers once per video
 pays no capture.
+
+While `utils/profiling.py` records, a register and a tracked frame are
+requests with host spans: `register.window`, `register.upload` (the
+staging ring's wait and copy) over `register.pack`, `register.step`
+(copy-in, replay, output copy; the step's device stages under it),
+`register.window_check`, `register.fetch`, `register.rerun` (a full-frame
+re-run's own spans), each blocking device-to-host fetch a
+`register.wait`; and `track.window`, `track.upload` over `track.pack`,
+`track.step`, `track.fetch` over `track.wait`, `track.check` (with a
+`track.rerun` when the frame re-runs full-frame).
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from ..models.networks import (
     init_score_net,
 )
 from ..parallel.sharding import batch_sharding, make_device_mesh, replicate_tree
+from ..utils import profiling
 from .config import EstimatorCfg
 from .graph import (
     REGISTER_PACK_FOOTER,
@@ -89,14 +100,16 @@ class TrackResult:
     into pinned host memory. `result()` waits for that copy and returns
     the (4, 4) float64 object-in-camera pose with the centered-mesh
     transform applied, as the blocking `track_one` returns it.
-    `MultiTrackResult` is the same handle for a (M, 4, 4) pose block."""
+    `MultiTrackResult` is the same handle for a (M, 4, 4) pose block.
+    `req` is the frame's profiling request, which result() finishes."""
 
-    __slots__ = ("_pose_dev", "_tf", "_on_fetch", "_cached", "_raw_host", "_host", "_event")
+    __slots__ = ("_pose_dev", "_tf", "_on_fetch", "_req", "_cached", "_raw_host", "_host", "_event")
 
-    def __init__(self, pose_dev: torch.Tensor, tf: np.ndarray, on_fetch=None):
+    def __init__(self, pose_dev: torch.Tensor, tf: np.ndarray, on_fetch=None, req=None):
         self._pose_dev = pose_dev
         self._tf = tf
         self._on_fetch = on_fetch
+        self._req = req
         self._cached = None
         self._raw_host = None
         self._host, self._event = _copy_to_host_async(pose_dev)
@@ -109,18 +122,22 @@ class TrackResult:
 
     def result(self) -> np.ndarray:
         if self._cached is None:
-            raw = self._raw_host
-            if raw is None:
-                if self._event is not None:
-                    self._event.synchronize()
-                raw = self._host.numpy().astype(np.float64)
-            if self._on_fetch is not None:
-                # on_fetch may return a corrected raw pose (the window
-                # check re-running the frame full-frame)
-                corrected = self._on_fetch(raw)
-                if corrected is not None:
-                    raw = corrected
-            self._cached = raw @ self._tf
+            with profiling.within(self._req):
+                raw = self._raw_host
+                if raw is None:
+                    with profiling.span("track.fetch"), profiling.span("track.wait"):
+                        if self._event is not None:
+                            self._event.synchronize()
+                        raw = self._host.numpy().astype(np.float64)
+                if self._on_fetch is not None:
+                    # on_fetch may return a corrected raw pose (the window
+                    # check re-running the frame full-frame)
+                    with profiling.span("track.check"):
+                        corrected = self._on_fetch(raw)
+                    if corrected is not None:
+                        raw = corrected
+                self._cached = raw @ self._tf
+            profiling.finish(self._req)
         return self._cached
 
 
@@ -515,9 +532,10 @@ class FoundationPose(GraphOwner):
         any hypothesis, not only the winner, may have been changed by the
         window's edge. One (N, 4, 4) fetch with the validity of each row."""
         order, refined = out[0], out[1]
-        host = torch.cat(
-            [refined.reshape(-1, 16), self.hyp_valid[order][:, None].to(torch.float32)], dim=1
-        ).cpu().numpy().astype(np.float64)
+        with profiling.span("register.wait"):
+            host = torch.cat(
+                [refined.reshape(-1, 16), self.hyp_valid[order][:, None].to(torch.float32)], dim=1
+            ).cpu().numpy().astype(np.float64)
         poses, valid = host[:, :16].reshape(-1, 4, 4), host[:, 16] > 0
         ratio = self._register_crop_ratio()
         return all(
@@ -555,6 +573,10 @@ class FoundationPose(GraphOwner):
     @torch.inference_mode()
     def register(self, K, rgb, depth, ob_mask, ob_id=None, iteration=5) -> np.ndarray:
         """Single-frame pose estimation (estimater.py:159-240)."""
+        with profiling.request("register"):
+            return self._register(K, rgb, depth, ob_mask, iteration)
+
+    def _register(self, K, rgb, depth, ob_mask, iteration) -> np.ndarray:
         mask_np = np.asarray(ob_mask)
         depth_np = np.asarray(depth)
         K_np = np.asarray(K)
@@ -578,34 +600,49 @@ class FoundationPose(GraphOwner):
                 win = (slice(y0, y0 + size), slice(x0, x0 + size))
                 rgb_w, depth_w, mask_w = rgb_np[win], depth_np[win], mask_np[win]
             h, w = depth_w.shape
-            buf = self._uploads.upload(
-                h * w * 5 + h * w // 8 + REGISTER_PACK_FOOTER,
-                lambda out: pack_register_frame(rgb_w, depth_w.astype(np.float32), mask_w,
-                                                x0, y0, out=out),
-            )
-            return self._register_step(K_t, iters, buf=buf, hw=(h, w))
+
+            def pack(out):
+                with profiling.span("register.pack"):
+                    return pack_register_frame(rgb_w, depth_w.astype(np.float32), mask_w, x0, y0,
+                                               out=out)
+
+            with profiling.span("register.upload"):
+                buf = self._uploads.upload(h * w * 5 + h * w // 8 + REGISTER_PACK_FOOTER, pack)
+            with profiling.span("register.step"):
+                return self._register_step(K_t, iters, buf=buf, hw=(h, w))
 
         if self.cfg.register_pack and depth_np.size % 8 == 0:
-            roi = self._register_roi_window(K_np, depth_np, mask_np)
+            with profiling.span("register.window"):
+                roi = self._register_roi_window(K_np, depth_np, mask_np)
             out = run_packed(roi)
-            if roi is not None and not self._register_window_holds(out, K_np, H, W, roi):
-                logger.info("register window left by a hypothesis's crop; re-running full-frame")
-                self.register_roi_recoveries += 1
-                out = run_packed(None)
+            if roi is not None:
+                with profiling.span("register.window_check"):
+                    holds = self._register_window_holds(out, K_np, H, W, roi)
+                if not holds:
+                    logger.info("register window left by a hypothesis's crop; re-running full-frame")
+                    self.register_roi_recoveries += 1
+                    with profiling.span("register.rerun"):
+                        out = run_packed(None)
         else:
             dev = self.device
-            out = self._register_step(K_t, iters, frame=(
-                torch.as_tensor(np.asarray(rgb_np, np.uint8), device=dev),
-                torch.as_tensor(np.asarray(depth_np, np.float32), device=dev),
-                torch.as_tensor(mask_np, device=dev)))
+            with profiling.span("register.upload"):
+                frame = (torch.as_tensor(np.asarray(rgb_np, np.uint8), device=dev),
+                         torch.as_tensor(np.asarray(depth_np, np.float32), device=dev),
+                         torch.as_tensor(mask_np, device=dev))
+            with profiling.span("register.step"):
+                out = self._register_step(K_t, iters, frame=frame)
         order, refined, scores, center, _n = out
         self.poses = refined
         self.scores = scores
         self.order = order
         self.pose_last = refined[0]
-        self.best_id = int(order[0])
-        self._pose_hint = self.pose_last.cpu().numpy().astype(np.float64)
-        self._guess_center = center.cpu().numpy().astype(np.float64)
+        with profiling.span("register.fetch"):
+            with profiling.span("register.wait"):
+                self.best_id = int(order[0])
+            with profiling.span("register.wait"):
+                self._pose_hint = self.pose_last.cpu().numpy().astype(np.float64)
+            with profiling.span("register.wait"):
+                self._guess_center = center.cpu().numpy().astype(np.float64)
         self._chain_repair = None  # a fresh chain
         self.track_stats = {"frames": 0, "roi_recoveries": 0, "chain_repairs": 0}
         best_pose = self._pose_hint @ self.get_tf_to_centered_mesh()
@@ -655,22 +692,27 @@ class FoundationPose(GraphOwner):
         point shifted on the device; unpacked: three uploads."""
         h, w = depth.shape
         if self.cfg.track_pack:
-            buf = self._uploads.upload(
-                h * w * 5 + TRACK_PACK_FOOTER,
-                lambda out: pack_track_frame(rgb, depth, x0, y0, out=out),
-            )
-            return track_graph_packed(self.refiner, self.cfg, self.mesh_tensors, pose_in,
-                                      self._K_device(K_full), buf, self._diam, (h, w), iters,
-                                      graphs=self._graphs)
+            def pack(out):
+                with profiling.span("track.pack"):
+                    return pack_track_frame(rgb, depth, x0, y0, out=out)
+
+            with profiling.span("track.upload"):
+                buf = self._uploads.upload(h * w * 5 + TRACK_PACK_FOOTER, pack)
+            with profiling.span("track.step"):
+                return track_graph_packed(self.refiner, self.cfg, self.mesh_tensors, pose_in,
+                                          self._K_device(K_full), buf, self._diam, (h, w), iters,
+                                          graphs=self._graphs)
         Kr = K_full.copy()
         Kr[0, 2] -= x0
         Kr[1, 2] -= y0
         dev = self.device
-        return track_graph(self.refiner, self.cfg, self.mesh_tensors, pose_in,
-                           torch.as_tensor(Kr, device=dev),
-                           torch.as_tensor(np.asarray(rgb, np.uint8), device=dev),
-                           torch.as_tensor(np.asarray(depth, np.float32), device=dev), self._diam,
-                           iters, graphs=self._graphs)
+        with profiling.span("track.upload"):
+            frame = (torch.as_tensor(Kr, device=dev),
+                     torch.as_tensor(np.asarray(rgb, np.uint8), device=dev),
+                     torch.as_tensor(np.asarray(depth, np.float32), device=dev))
+        with profiling.span("track.step"):
+            return track_graph(self.refiner, self.cfg, self.mesh_tensors, pose_in, *frame,
+                               self._diam, iters, graphs=self._graphs)
 
     @torch.inference_mode()
     def track_one_async(self, rgb, depth, K, iteration=2) -> TrackResult:
@@ -696,21 +738,26 @@ class FoundationPose(GraphOwner):
         H, W = depth_full.shape
         pose_in = self.pose_last
         iters = int(iteration) if self.has_refiner else 0
-        roi = self._track_roi_window(K_full, H, W)
-        if roi is None:
-            pose = self._track_step(pose_in, K_full, rgb_full, depth_full, 0, 0, iters)
-        else:
-            x0, y0, size = roi
-            win = (slice(y0, y0 + size), slice(x0, x0 + size))
-            pose = self._track_step(pose_in, K_full, rgb_full[win], depth_full[win], x0, y0, iters)
+        req = profiling.begin("track")
+        with profiling.within(req):
+            with profiling.span("track.window"):
+                roi = self._track_roi_window(K_full, H, W)
+            if roi is None:
+                pose = self._track_step(pose_in, K_full, rgb_full, depth_full, 0, 0, iters)
+            else:
+                x0, y0, size = roi
+                win = (slice(y0, y0 + size), slice(x0, x0 + size))
+                pose = self._track_step(pose_in, K_full, rgb_full[win], depth_full[win], x0, y0,
+                                        iters)
         self.pose_last = pose
         self._track_seq += 1
         seq = self._track_seq
 
         def rerun_full_frame(from_pose):
-            with torch.inference_mode():
+            with torch.inference_mode(), profiling.span("track.rerun"):
                 pose2 = self._track_step(from_pose, K_full, rgb_full, depth_full, 0, 0, iters)
-                return pose2, pose2.cpu().numpy().astype(np.float64)
+                with profiling.span("track.wait"):
+                    return pose2, pose2.cpu().numpy().astype(np.float64)
 
         def adopt(pose2, raw2):
             """A corrected pose for this frame: the new hint, and the chain
@@ -750,4 +797,4 @@ class FoundationPose(GraphOwner):
             self.track_stats["roi_recoveries"] += 1
             return adopt(*rerun_full_frame(pose_in))
 
-        return TrackResult(pose, self.get_tf_to_centered_mesh(), on_fetch)
+        return TrackResult(pose, self.get_tf_to_centered_mesh(), on_fetch, req)

@@ -13,6 +13,11 @@ per static shape, replayed per call; a register step runs eagerly at its
 first call and is captured at its second); `TrackChain` replays one
 tracking step once per frame: the counterpart of the JAX package's
 `lax.scan` over staged frames.
+
+The bodies mark their device stages for `utils/profiling.py`: `prep`
+(unpack, depth filters, xyz map, translation guess), per refine iteration
+`crops`, `refiner` and `update` (refiner.py), `score.crops` and
+`score.net` (scorer.py) and `rank` (the argsorts and the funnel's order).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from .. import torch_config  # noqa: F401
 from ..geometry.projection import depth_to_xyz_map
 from ..ops.depth_filters import bilateral_filter_depth, erode_depth
+from ..utils import profiling
 from .config import EstimatorCfg
 from .mesh_tensors import MeshTensors
 from .refiner import refine_poses
@@ -114,6 +120,7 @@ def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid
     (`score_poses_sharded`). The funnel ranks every hypothesis on the
     first device, then splits the survivors over the shards again. The
     result lies on the first device, and is the one-shard result."""
+    profiling.mark("prep")
     first = rot_grid_parts[0].device
     shards = []
     for (ref, sco, mesh, diam), (K, rgb, depth_raw, mask), rot in zip(replicas, frames, rot_grid_parts):
@@ -148,6 +155,7 @@ def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid
     if not prune:
         refined_parts = refine([sh.poses for sh in shards], iterations)
         scores = score(cfg.scorer, refined_parts, hyp_valid)
+        profiling.mark("rank")
         refined = gather(refined_parts)
         # stable, as jnp.argsort: padded hypotheses all hold -inf
         order = torch.argsort(-scores, stable=True)
@@ -155,10 +163,12 @@ def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid
 
     refined1_parts = refine([sh.poses for sh in shards], cfg.prune_after_iter)
     pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1_parts, hyp_valid)
+    profiling.mark("rank")
     keep_idx = funnel_keep(pre, cfg.prune_keep)
     refined1 = gather(refined1_parts)
     sub_refined = gather(refine(split(refined1[keep_idx]), iterations - cfg.prune_after_iter))
     sub_scores = score(cfg.scorer, split(sub_refined), hyp_valid[keep_idx])
+    profiling.mark("rank")
     refined = refined1.index_copy(0, keep_idx, sub_refined)
     order, scores = funnel_order(pre, sub_scores, keep_idx, hyp_valid)
     return order, refined[order], scores[order], center, n_valid
@@ -217,6 +227,7 @@ def funnel_order(pre, sub_scores, keep_idx, hyp_valid):
 def track_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K, rgb, depth_raw,
                mesh_diameter, iterations):
     """One tracking step: refine the last pose on the new frame."""
+    profiling.mark("prep")
     _depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
     refined = refine_poses(
         refiner_net, cfg.refiner, mesh, pose_last[None], K, rgb, xyz_map,
@@ -335,6 +346,7 @@ def register_graph_packed_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, h
     """register_body_sharded on a pack_register_frame buffer: the packed
     bytes are copied to each shard's device (once a device) and unpacked
     there."""
+    profiling.mark("prep")
     per_device = {}
     frames = []
     for rot in rot_grid_parts:
@@ -376,6 +388,7 @@ def register_graph(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, h
     iterations, shards = int(iterations), int(shards)
 
     def body(rot_grid, hyp_valid, K, rgb_u8, depth_raw, mask, diam):
+        profiling.mark("prep")
         rgb = rgb_u8.to(torch.float32) / 255.0
         replicas, rot_parts, valid_parts = _one_device_shards(refiner_net, scorer_net, mesh, diam,
                                                               rot_grid, hyp_valid, shards)
@@ -411,6 +424,7 @@ def track_packed_body(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K_full, b
                       mesh_diameter, hw, iterations):
     """track_body on a pack_track_frame buffer: unpack, shift the
     full-frame K's principal point by the packed window offset, track."""
+    profiling.mark("prep")
     rgb, depth_raw, x0, y0 = unpack_track_frame(buf, hw)
     return track_body(refiner_net, cfg, mesh, pose_last, shift_principal_point(K_full, x0, y0),
                       rgb, depth_raw, mesh_diameter, iterations)
@@ -424,6 +438,7 @@ def track_graph(refiner_net, cfg: EstimatorCfg, mesh, pose_last, K, rgb_u8, dept
     iterations = int(iterations)
 
     def body(pose, K, rgb_u8, depth_raw, diam):
+        profiling.mark("prep")
         rgb = rgb_u8.to(torch.float32) / 255.0
         return track_body(refiner_net, cfg, mesh, pose, K, rgb, depth_raw, diam, iterations)
 

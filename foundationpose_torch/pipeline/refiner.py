@@ -13,6 +13,7 @@ from .. import torch_config  # noqa: F401
 from ..geometry.projection import invert_affine2d, project_points
 from ..geometry.rotations import rotation_6d_to_matrix, so3_exp_map
 from ..geometry.transforms import egocentric_delta_pose_to_pose
+from ..utils import profiling
 from .config import RefinerCfg, torch_dtype
 from .crops import make_crop_inputs
 from .mesh_tensors import MeshTensors
@@ -81,6 +82,7 @@ def refine_poses(
     cur = poses.to(torch.float32)
     hist = []
     for _ in range(int(iterations)):
+        profiling.mark("crops")
         a, b, tf = make_crop_inputs(
             mesh, cur, K, rgb, xyz_map, mesh_diameter,
             input_res=cfg.input_res,
@@ -90,9 +92,11 @@ def refine_poses(
             use_normal=cfg.use_normal,
             raster=cfg.raster,
         )
+        profiling.mark("refiner")
         out = net(a, b, dtype=dtype)
         if return_history:
             hist.append(cur)
+        profiling.mark("update")
         cur = apply_pose_delta(
             cur, out["trans"], out["rot"], cfg, mesh_diameter, K=K, tf_to_crops=tf
         )

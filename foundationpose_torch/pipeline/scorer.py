@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from .. import torch_config  # noqa: F401
+from ..utils import profiling
 from .config import ScorerCfg, torch_dtype
 from .crops import make_crop_inputs
 from .mesh_tensors import MeshTensors
@@ -83,7 +84,9 @@ def score_poses_sharded(shards, cfg: ScorerCfg, poses_parts, valid=None) -> torc
     for (net, mesh, K, rgb, xyz_map, diam), poses in zip(shards, poses_parts):
         if poses.shape[0] == 0:
             continue
+        profiling.mark("score.crops")
         a, b = _crops(cfg, mesh, poses, K, rgb, xyz_map, diam)
+        profiling.mark("score.net")
         outs.append(_depth_alignment_scores(a, b) if cfg.mode == "depth" else net.pooled(a, b, dtype))
     cat = torch.cat([o.to(first) for o in outs])
     scores = cat if cfg.mode == "depth" else shards[0][0].group_logits(cat, dtype)

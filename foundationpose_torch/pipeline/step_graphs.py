@@ -43,6 +43,11 @@ same static inputs (and, after a register step's first call, the same
 static outputs), so the copies in and out are exercised where no graph
 can be captured. On the card a failed capture or replay raises; nothing
 runs the body eagerly in its place.
+
+Device stages (`utils/profiling.py`): a capture records the body's
+`profiling.mark` calls as timing-event nodes of the graph, whatever the
+recorder's flag; a replay inside a request leaves the request a read of
+them, and an eager run inside one records its own marks.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import time
 import torch
 
 from ..ops import attention_cuda, raster_cuda, segment_add_cuda
+from ..utils import profiling
 
 WARMUP_RUNS = 2  # eager runs on a side stream before a tracking step's capture
 
@@ -91,7 +97,8 @@ class StepGraph:
     added at every replay, and the capture itself counts none (the
     warm-up runs launch, and count). `replays` counts the calls answered
     from the static outputs: graph replays on the card, the body run
-    through the static tensors on the CPU."""
+    through the static tensors on the CPU. `marks` are the capture's
+    stage marks (profiling.capture_marks)."""
 
     def __init__(self, body, inputs, statics=(), pool=None, eager_first=False):
         self.body = body
@@ -106,6 +113,8 @@ class StepGraph:
         self.capture_ms = None
         self.eager_runs = 0
         self.replays = 0
+        self.marks = ()
+        self._unread = None  # the last replay's pending read of its marks
 
     def _capture(self):
         dev = self.device
@@ -120,12 +129,12 @@ class StepGraph:
         counters = _kernel_counters()
         before = [c.launches for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool), profiling.capture_marks() as marks:
             out = self.body(*self.inputs)
         self.launches = tuple((c, c.launches - n) for c, n in zip(counters, before) if c.launches != n)
         for c, n in zip(counters, before):
             c.launches = n  # capturing launches nothing
-        self.graph, self.output = graph, out
+        self.graph, self.output, self.marks = graph, out, marks
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     @torch.inference_mode()
@@ -135,9 +144,12 @@ class StepGraph:
         if self.eager_first and self.eager_runs == 0:
             self.eager_runs = 1
             with _on(self.device):
-                return _copy(self.body(*self.inputs))
+                with profiling.stages(self.device):
+                    out = self.body(*self.inputs)
+                return _copy(out)
         if self.device.type != "cuda":
-            out = self.body(*self.inputs)
+            with profiling.stages(self.device):
+                out = self.body(*self.inputs)
             if self.output is None:
                 self.output = _copy(out)
             else:
@@ -147,6 +159,7 @@ class StepGraph:
             with _on(self.device):  # capture and replay on the inputs' card
                 if self.graph is None:
                     self._capture()
+                self._unread = profiling.replaying(self.marks, self._unread)
                 self.graph.replay()
             for counter, n in self.launches:
                 counter.launches += n
@@ -162,11 +175,16 @@ class StepGraphs:
     the inputs' shapes, dtypes and devices, making it on a miss or when
     the cached one was made with other statics (compared by identity:
     the cache holds them, so an address is never reused under it). The
-    owner calls `clear()` when it replaces what its steps read by address."""
+    owner calls `clear()` when it replaces what its steps read by address.
+    `captures` and `capture_s` count the steps captured and the seconds
+    their captures took (StepGraph.capture_ms), over the owner's life:
+    `clear()` keeps them."""
 
     def __init__(self):
         self._graphs: dict = {}
         self._pool = None
+        self.captures = 0
+        self.capture_s = 0.0
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -188,7 +206,12 @@ class StepGraphs:
             if self._pool is None and inputs[0].device.type == "cuda":
                 self._pool = torch.cuda.graph_pool_handle()
             step = self._graphs[key] = StepGraph(body, inputs, statics, self._pool, eager_first)
-        return step(*inputs)
+        graph = step.graph
+        out = step(*inputs)
+        if step.graph is not graph:  # this call captured the step
+            self.captures += 1
+            self.capture_s += step.capture_ms * 1e-3
+        return out
 
 
 class GraphOwner:

@@ -375,3 +375,75 @@ def test_register_step_captured_at_the_second_call(card, uploads):
         assert (step.graph is None) == (call == 0)
         assert (step.eager_runs, step.replays) == (1, call)
         assert all(torch.equal(a, b) for a, b in zip((est.order, est.poses, est.scores), want))
+
+
+def test_replayed_steps_read_their_device_stages(card):
+    """The recorder (utils/profiling.py) on a replayed register and tracked
+    frames (f32): each stage, read from the timing-event nodes
+    the capture recorded, is positive and in the body's order, and a
+    register's stages add up to within 10% of the median of three
+    event-timed replays of its step (each launched while the device
+    sleeps, so the events time the graph and not its launch); a frame whose
+    graph was replayed again before its fetch drops its read and counts
+    it; the capture counters count the capture and survive clear()."""
+    import dataclasses
+
+    from chip_smoke import K_SMALL, _estimator, _small_scene
+    from foundationpose_torch.models import RefineNetCfg, ScoreNetCfg
+    from foundationpose_torch.utils import profiling
+
+    box, cfg, frame = _small_scene()
+    # nets of width 32 on 96 px crops: at test width the graph's fixed cost of a launch on
+    # the device (~0.5 ms) would be a seventh of the replay
+    cfg = dataclasses.replace(
+        cfg, register_pack=True,
+        refiner=dataclasses.replace(cfg.refiner, net=RefineNetCfg(base_width=32), input_res=96),
+        scorer=dataclasses.replace(cfg.scorer, net=ScoreNetCfg(base_width=32), input_res=96))
+    est = _estimator(box, cfg, card, head_scale=0.05)
+    for _ in range(2):  # eager, then captured
+        est.register(K_SMALL, *frame, iteration=2)
+    assert est._graphs.captures == 1 and est._graphs.capture_s > 0
+    profiling.reset()
+    profiling.enable()
+    try:
+        est.register(K_SMALL, *frame, iteration=2)
+        for _ in range(2):  # the first frame captures its step, the second replays it
+            est.track_one(frame[0], frame[1], K_SMALL, iteration=2)
+        in_flight = [est.track_one_async(frame[0], frame[1], K_SMALL, iteration=2) for _ in range(2)]
+        for r in in_flight:
+            r.result()
+    finally:
+        profiling.disable()
+
+    def stages(req):
+        (root,) = req.named("step")
+        return [s for s in req.spans if s.parent == req.spans.index(root)]
+
+    (reg,) = profiling.requests("register")
+    got = stages(reg)
+    per_iter = ["crops", "refiner", "update"] * 2
+    assert [s.name for s in got] == ["prep"] + per_iter + ["score.crops", "score.net", "rank"]
+    assert all(s.duration > 0 for s in got)
+    step = next(s for (path, *_), s in est._graphs.items() if path[0] == "register_packed")
+    replays = []
+    for _ in range(3):  # the same step replayed between events, its launch hidden by a sleep
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        a.record()
+        step.graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        replays.append(a.elapsed_time(b) * 1e-3)
+    assert sum(s.duration for s in got) == pytest.approx(sorted(replays)[1], rel=0.1)
+    frames = profiling.requests("track")
+    assert len(frames) == 4
+    for req in frames[:2] + frames[3:]:
+        assert [s.name for s in stages(req)] == ["prep"] + per_iter
+        assert all(s.duration > 0 for s in stages(req))
+    assert not frames[2].has_device_spans()
+    assert profiling.counters() == {"device_reads_dropped": 1}
+    captures = est._graphs.captures
+    assert captures == 2
+    est._graphs.clear()
+    assert est._graphs.captures == captures
+    profiling.reset()
