@@ -19,6 +19,10 @@ with a nonzero exit and no result line):
 4. K2, the attention core, against its plain version in bf16 (< 2e-3)
    and f32 (< 1e-4) at the main path's shapes and edge shapes (L = 1,
    L = 513, head widths 8, 24, 5 and 100);
+4b. the fused layer epilogue (no TPU counterpart) at the register's
+   largest shapes, 504 x 80 x 80 x 64 bf16 with bias, BN and ReLU and
+   252 x 40 x 40 x 256 with bias, BN, residual and ReLU: bit-equal to the
+   plain ops, and timed in turns with them, beside its bytes' bound;
 5. K3 and K4, the hash-grid backward's segment-adds, against their plain
    versions at the shapes of NerfCfg's defaults (per-row bound 1e-5 of
    the row's sum of |update|: atomics add in another order each run),
@@ -318,13 +322,13 @@ def build_phase():
     """One nvcc per source, all started together (K3 and K4 share one)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
 
     def build(k):
         t0 = time.perf_counter()
         return k.build(), time.perf_counter() - t0
 
-    libs = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3)
+    libs = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, epilogue_cuda.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         results = list(pool.map(build, libs))
     for k, (path, sec) in zip(libs, results):
@@ -566,6 +570,88 @@ def k2_phase():
     return max(err.values())
 
 
+EPILOGUE_SHAPES = [  # (N, C, H, W), residual: a ConvBNReLU's and a residual block's second conv
+    ((504, 64, 80, 80), False), ((252, 256, 40, 40), True),
+]
+
+
+@contextlib.contextmanager
+def _plain_epilogues():
+    """models/layers.py::epilogue runs its plain ops on the card."""
+    from foundationpose_torch.ops import epilogue_cuda
+
+    refusal, epilogue_cuda.refusal = epilogue_cuda.refusal, lambda *a: "the plain ops"
+    try:
+        yield
+    finally:
+        epilogue_cuda.refusal = refusal
+
+
+def epilogue_phase():
+    """The fused epilogue at the register's largest shapes (channels-last
+    bf16, bias and BN, the second with the residual, ReLU): bit-equal to
+    the plain ops on the card, and both timed in turns (plain, kernel,
+    kernel, plain) beside the bytes' bound (product and residual read,
+    output written). Returns the times under `epi*` keys for the kernels
+    line, and the largest |kernel - plain| under `epi_err`."""
+    import torch
+
+    from foundationpose_torch.models import layers as L
+    from foundationpose_torch.ops import epilogue_cuda
+
+    out = {"epi_err": 0.0}
+    for (n, c, h, w), residual in EPILOGUE_SHAPES:
+        g = torch.Generator().manual_seed(c)
+        bn = L.BatchNorm2d(c)
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.rand(c, generator=g) - 0.5)
+            bn.running_var.copy_(torch.rand(c, generator=g) + 0.2)
+            bn.weight.copy_(torch.rand(c, generator=g) + 0.5)
+            bn.bias.copy_(torch.rand(c, generator=g) - 0.5)
+        bn = bn.cuda()
+        bias = (torch.rand(c, generator=g) - 0.5).cuda()
+
+        def product():  # channels-last, as cuDNN writes a conv's output
+            t = torch.empty((n, h, w, c), device="cuda", dtype=torch.bfloat16).uniform_(-3, 3)
+            return t.permute(0, 3, 1, 2)
+
+        y, res = product(), product() if residual else None
+        kw = dict(bias=bias, bn=bn, residual=res, relu=True, axis=1)
+        scratch = y.clone(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            with _plain_epilogues():
+                want = L.epilogue(y, torch.bfloat16, **kw)
+            launched = epilogue_cuda.KERNEL.launches
+            got = L.epilogue(y.clone(memory_format=torch.channels_last), torch.bfloat16, **kw)
+            torch.cuda.synchronize()
+            if epilogue_cuda.KERNEL.launches != launched + 1:
+                raise AssertionError(f"the epilogue at {(n, c, h, w)} did not take the kernel")
+            out["epi_err"] = max(out["epi_err"], float((got.float() - want.float()).abs().max()))
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)) or got.stride() != want.stride():
+                raise AssertionError(f"the epilogue kernel differs from the plain ops at {(n, c, h, w)}")
+            del got, want
+            t = {"plain": [], "kernel": []}
+            for k in ("plain", "kernel", "kernel", "plain"):
+                with _plain_epilogues() if k == "plain" else contextlib.nullcontext():
+                    # the kernel writes over its input: it runs on a scratch copy
+                    t[k].append(_event_ms(lambda: L.epilogue(y if k == "plain" else scratch,
+                                                             torch.bfloat16, **kw), reps=10))
+        t_kernel, t_plain = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+        b_ms, b_by = bound(_nbytes(y, y, res), 0, "bf16")
+        key = f"epi_{n}x{c}x{h}x{w}" + ("_res" if residual else "")
+        out.update({f"{key}_ms": t_kernel, f"{key}_plain_ms": t_plain, f"{key}_bound_ms": b_ms,
+                    f"{key}_bound_by": b_by})
+        print(f"  epilogue {(n, c, h, w)} bf16 bias+BN{'+residual' if residual else ''}+ReLU: bit-equal; "
+              f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / t_kernel * 100:.1f}% of the bound")
+        del y, res, scratch
+        torch.cuda.empty_cache()
+    first = "epi_{}x{}x{}x{}".format(*EPILOGUE_SHAPES[0][0])
+    out.update({f"epi_{k}": out[f"{first}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    out["epi_library_ms"] = None
+    return out
+
+
 def _estimator(mesh, cfg, device, seed=0, head_scale=0.0):
     import torch
 
@@ -604,6 +690,11 @@ K_SMALL = np.array([[140.0, 0, 80.0], [0, 140.0, 60.0], [0, 0, 1.0]], np.float32
 # (EstimatorCfg's defaults since they were ported): full frames, rgb and f32
 # depth uploaded apart, so their records stay comparable.
 UNPACKED = dict(register_pack=False, register_roi=False, track_pack=False, track_roi=False)
+# Fused epilogues (ops/epilogue_cuda.py) of one forward: RefineNet's 25 convs,
+# linears and in-projections, ScoreNetMultiPair's 20. A register refines 5
+# times and scores once; a forward of either net launches K2 twice.
+REFINE_EPILOGUES, SCORE_EPILOGUES = 25, 20
+REGISTER_EPILOGUES = 5 * REFINE_EPILOGUES + SCORE_EPILOGUES
 
 
 def _box():
@@ -764,7 +855,7 @@ def main_path_phase():
     the launch counts of that run and the estimator + frame for timing."""
     import torch
 
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
     from foundationpose_torch.pipeline import EstimatorCfg, RasterCfg, RefinerCfg, ScorerCfg
 
     mesh = _bench_mesh()
@@ -781,23 +872,29 @@ def main_path_phase():
           f"render faces {len(est.mesh_tensors.faces)}, mask px {int(frame[2].sum())}")
     torch.cuda.synchronize()
 
-    raster_cuda.KERNEL.launches = 0
-    attention_cuda.KERNEL.launches = 0
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
     pose = est.register(K_FULL, *frame, iteration=5)
-    counts_reg = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    counts_reg = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches,
+                  epilogue_cuda.KERNEL.launches)
     tracked = [est.track_one(frame[0], frame[1], K_FULL, iteration=2) for _ in range(3)]
     torch.cuda.synchronize()
-    counts = {"raster": raster_cuda.KERNEL.launches, "attention": attention_cuda.KERNEL.launches}
+    counts = {"raster": raster_cuda.KERNEL.launches, "attention": attention_cuda.KERNEL.launches,
+              "epilogue": epilogue_cuda.KERNEL.launches}
+    frames_k2, frames_epi = counts["attention"] - counts_reg[1], counts["epilogue"] - counts_reg[2]
     print(f"  register pose t = {pose[:3, 3]}, best hypothesis {est.best_id}")
     print(f"  launches: register {counts_reg}, register + 3 frames "
-          f"raster {counts['raster']} attention {counts['attention']}")
+          f"raster {counts['raster']} attention {counts['attention']} epilogue {counts['epilogue']}")
     for p in [pose] + tracked:
         if not (p.shape == (4, 4) and np.isfinite(p).all() and abs(p[2, 3] - 0.9) < 0.2):
             raise AssertionError(f"main path pose out of bounds:\n{p}")
-    if counts_reg != (6, 12):  # the first register runs its step's body once
-        raise AssertionError(f"register launched {counts_reg}, not K1 6 and K2 12")
-    if counts["raster"] - counts_reg[0] < 6 or counts["attention"] - counts_reg[1] < 12:
+    if counts_reg != (6, 12, REGISTER_EPILOGUES):  # the first register runs its step's body once
+        raise AssertionError(f"register launched {counts_reg}, not K1 6, K2 12 and "
+                             f"{REGISTER_EPILOGUES} epilogues")
+    if counts["raster"] - counts_reg[0] < 6 or frames_k2 < 12:
         raise AssertionError(f"tracking launched too few kernels: {counts}")
+    if 2 * frames_epi != REFINE_EPILOGUES * frames_k2:  # a tracked frame: 2 forwards, 50 epilogues
+        raise AssertionError(f"tracking launched {frames_epi} epilogues beside {frames_k2} K2 launches, "
+                             f"not {REFINE_EPILOGUES} a forward")
     return counts, est, frame, n_hyp
 
 
@@ -1007,7 +1104,7 @@ def register_steps_phase(est, frame):
 
     import torch
 
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
     from foundationpose_torch.pipeline import graph as g
 
     t = {}
@@ -1018,15 +1115,17 @@ def register_steps_phase(est, frame):
 
     # (a) the main path's register, replayed
     torch.cuda.synchronize()
-    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
     pose = reg(est)
     torch.cuda.synchronize()
-    k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches, epilogue_cuda.KERNEL.launches)
     (key, step), = _register_steps(est)
-    print(f"  launches of a register replayed from its step {key[0]}: K1 {k[0]} K2 {k[1]}")
-    if k != (6, 12) or step.graph is None or not np.isfinite(pose).all():
-        raise AssertionError(f"the replayed register launched {k}, not K1 6 and K2 12")
-    counts = {"raster": k[0], "attention": k[1]}
+    print(f"  launches of a register replayed from its step {key[0]}: K1 {k[0]} K2 {k[1]} "
+          f"epilogue {k[2]}")
+    if k != (6, 12, REGISTER_EPILOGUES) or step.graph is None or not np.isfinite(pose).all():
+        raise AssertionError(f"the replayed register launched {k}, not K1 6, K2 12 and "
+                             f"{REGISTER_EPILOGUES} epilogues")
+    counts = {"raster": k[0], "attention": k[1], "epilogue": k[2]}
     up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")  # noqa: E731
     args = (est.refiner, est.scorer, est.cfg, est.mesh_tensors, est.rot_grid, est.hyp_valid,
             up(K_FULL))
@@ -1247,7 +1346,7 @@ def completion_phase(est, frame):
     launches and its time beside the full register's (`est`), in turns."""
     import torch
 
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
 
     mesh = est.mesh_ori
     checkpoint_check(mesh, "cuda")
@@ -1255,16 +1354,16 @@ def completion_phase(est, frame):
     print("  mode: unpacked full-frame uploads, as the main path's estimator")
     n_hyp = int(funnel.hyp_valid.sum())
     torch.cuda.synchronize()
-    raster_cuda.KERNEL.launches = 0
-    attention_cuda.KERNEL.launches = 0
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
     pose = funnel.register(K_FULL, *frame, iteration=5)
     torch.cuda.synchronize()
-    counts = {"raster": raster_cuda.KERNEL.launches, "attention": attention_cuda.KERNEL.launches}
+    counts = {"raster": raster_cuda.KERNEL.launches, "attention": attention_cuda.KERNEL.launches,
+              "epilogue": epilogue_cuda.KERNEL.launches}
     order = funnel.order.cpu().numpy()
     scores = funnel.scores.cpu().numpy()
     print(f"  funneled register: pose t = {pose[:3, 3]}, best hypothesis {funnel.best_id}, "
-          f"launches raster {counts['raster']} attention {counts['attention']} "
-          f"(full register: 6 and 12)")
+          f"launches raster {counts['raster']} attention {counts['attention']} epilogue "
+          f"{counts['epilogue']} (full register: 6, 12 and {REGISTER_EPILOGUES})")
     print(f"  funneled scores: first 64 in [{scores[63]:.10g}, {scores[0]:.10g}], "
           f"65th {scores[64]:.6g}, distinct order entries {len(set(order.tolist()))}")
     if not (pose.shape == (4, 4) and np.isfinite(pose).all() and abs(pose[2, 3] - 0.9) < 0.2):
@@ -1272,8 +1371,10 @@ def completion_phase(est, frame):
     if not ((scores[:64] > 1e4).all() and (np.diff(scores[:64]) <= 0).all()
             and len(set(order.tolist())) == len(order) == len(funnel.hyp_valid)):
         raise AssertionError("the funneled register's order or scores are malformed")
-    if (counts["raster"], counts["attention"]) != (7, 12):
-        raise AssertionError(f"the funneled register launched {counts}, not K1 7 and K2 12")
+    # every hypothesis refined once, the survivors 4 times more, the survivors scored
+    if (counts["raster"], counts["attention"], counts["epilogue"]) != (7, 12, REGISTER_EPILOGUES):
+        raise AssertionError(f"the funneled register launched {counts}, not K1 7, K2 12 and "
+                             f"{REGISTER_EPILOGUES} epilogues")
 
     regs = {"full": est, "funneled": funnel}
     times = {k: [] for k in regs}
@@ -1281,16 +1382,17 @@ def completion_phase(est, frame):
         e.register(K_FULL, *frame, iteration=5)
     (fkey, fstep), = _against_eager("funneled", funnel, frame)
     torch.cuda.synchronize()
-    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+    raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
     funnel.register(K_FULL, *frame, iteration=5)
     torch.cuda.synchronize()
-    replayed = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    replayed = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches, epilogue_cuda.KERNEL.launches)
     print(f"  funneled: step {fkey[0]} captured in {fstep.capture_ms:.1f} ms, its pool "
           f"{_pool_bytes(funnel._graphs) / 2**20:.1f} MiB, a replay launches K1 {replayed[0]} "
-          f"K2 {replayed[1]}   [{_CARD}]")
-    if replayed != (7, 12):
-        raise AssertionError(f"the funneled register's replay counted {replayed}, not K1 7 and K2 12")
-    counts = {"raster": counts["raster"] + replayed[0], "attention": counts["attention"] + replayed[1]}
+          f"K2 {replayed[1]} epilogue {replayed[2]}   [{_CARD}]")
+    if replayed != (7, 12, REGISTER_EPILOGUES):
+        raise AssertionError(f"the funneled register's replay counted {replayed}, not K1 7, K2 12 and "
+                             f"{REGISTER_EPILOGUES} epilogues")
+    counts = {k: counts[k] + n for k, n in zip(("raster", "attention", "epilogue"), replayed)}
     for name in ("full", "funneled", "funneled", "full"):
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1579,8 +1681,8 @@ def captured_against_eager(est, multi, frames, K, sizes):
 
 
 class _Counts:
-    """K1 / K2 launches of each path of a phase, the counters set to 0
-    before each and read after it."""
+    """K1 / K2 / epilogue launches of each path of a phase, the counters
+    set to 0 before each and read after it."""
 
     def __init__(self):
         self.paths = {}
@@ -1590,36 +1692,38 @@ class _Counts:
         function of nothing that counts them after the run), K1 and K2
         launches a step); then the counts must be those of the replays and
         of the warm-up runs of the steps captured on the way
-        (step_graphs.WARMUP_RUNS each)."""
+        (step_graphs.WARMUP_RUNS each), with REFINE_EPILOGUES epilogues
+        for each RefineNet forward (two K2 launches)."""
         import torch
 
-        from foundationpose_torch.ops import attention_cuda, raster_cuda
+        from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
         from foundationpose_torch.pipeline.step_graphs import WARMUP_RUNS
 
         n0 = len(tracked[0]) if tracked else 0
         torch.cuda.synchronize()
-        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
         out = fn(*args)
         torch.cuda.synchronize()
-        k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+        k = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches, epilogue_cuda.KERNEL.launches)
         self.paths[name] = k
-        print(f"  launches {name}: K1 {k[0]} K2 {k[1]}")
-        if not (k[0] > 0 and k[1] > 0):
-            raise AssertionError(f"{name} did not launch K1 and K2")
+        print(f"  launches {name}: K1 {k[0]} K2 {k[1]} epilogue {k[2]}")
+        if not (k[0] > 0 and k[1] > 0 and k[2] > 0):
+            raise AssertionError(f"{name} did not launch K1, K2 and the epilogue")
         if tracked:
             graphs, frames, per_step = tracked
             frames = frames() if callable(frames) else frames
             steps = frames + WARMUP_RUNS * (len(graphs) - n0)
-            want = tuple(steps * n for n in per_step)
+            want = (steps * per_step[0], steps * per_step[1], steps * per_step[1] * REFINE_EPILOGUES // 2)
             print(f"    {frames} steps replayed, {len(graphs) - n0} captured: "
-                  f"K1 {want[0]} K2 {want[1]} expected")
+                  f"K1 {want[0]} K2 {want[1]} epilogue {want[2]} expected")
             if k != want:
                 raise AssertionError(f"{name}: the launch counts are not those of the frames tracked")
         return out
 
     def total(self):
         return {"raster": sum(k[0] for k in self.paths.values()),
-                "attention": sum(k[1] for k in self.paths.values())}
+                "attention": sum(k[1] for k in self.paths.values()),
+                "epilogue": sum(k[2] for k in self.paths.values())}
 
 
 def video_phase():
@@ -2256,7 +2360,7 @@ def model_free_phase():
     from scipy.spatial import cKDTree
 
     from foundationpose_torch.nerf import NerfCfg, run_neural_object_field
-    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
     from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
 
     mesh = _bench_mesh()
@@ -2265,7 +2369,8 @@ def model_free_phase():
           f"{int(views[2].sum()) // len(views[0])}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4,
+               epilogue_cuda.KERNEL)
     for k in kernels:
         k.launches = 0
 
@@ -2298,13 +2403,15 @@ def model_free_phase():
     est = _estimator(recon, EstimatorCfg(refiner=RefinerCfg(), scorer=ScorerCfg(mode="network"),
                                          **UNPACKED), "cuda")
     frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
-    before = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+    before = (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches, epilogue_cuda.KERNEL.launches)
     pose = est.register(K_FULL, *frame, iteration=5)
-    reg = (raster_cuda.KERNEL.launches - before[0], attention_cuda.KERNEL.launches - before[1])
-    print(f"  register on the reconstruction: t = {pose[:3, 3]}, launches K1 {reg[0]} K2 {reg[1]}")
+    reg = (raster_cuda.KERNEL.launches - before[0], attention_cuda.KERNEL.launches - before[1],
+           epilogue_cuda.KERNEL.launches - before[2])
+    print(f"  register on the reconstruction: t = {pose[:3, 3]}, launches K1 {reg[0]} K2 {reg[1]} "
+          f"epilogue {reg[2]}")
     if not (pose.shape == (4, 4) and np.isfinite(pose).all() and abs(pose[2, 3] - 0.9) < 0.2):
         raise AssertionError(f"register on the reconstruction: pose out of bounds\n{pose}")
-    if reg[0] < 6 or reg[1] < 12:
+    if reg[0] < 6 or reg[1] < 12 or reg[2] != REGISTER_EPILOGUES:
         raise AssertionError(f"register on the reconstruction launched too few kernels: {reg}")
 
     cuda_runner = _nerf_runner(NerfCfg(n_step=NERF_STEPS, grid_layout="cuda"), K_FULL, views, "cuda")
@@ -2321,7 +2428,7 @@ def model_free_phase():
     torch.cuda.synchronize()
     t["nerf_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     counts = {"raster": kernels[0].launches, "attention": kernels[1].launches,
-              "k3": kernels[2].launches, "k4": kernels[3].launches}
+              "k3": kernels[2].launches, "k4": kernels[3].launches, "epilogue": kernels[4].launches}
     return counts, t, (runner, cuda_runner, views, est, frame)
 
 
@@ -2434,10 +2541,11 @@ def entry_point_phase(views):
     from foundationpose_torch.meshio import load_mesh
     from foundationpose_torch.nerf import NerfCfg, run_neural_object_field
     from foundationpose_torch.nerf.texture import bake_texture
-    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
 
     mesh = _bench_mesh()
-    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4,
+               epilogue_cuda.KERNEL)
     t = {}
     clock = [time.perf_counter()]
 
@@ -2538,7 +2646,8 @@ def entry_point_phase(views):
         stage("resumed_mesh")
     stage("cleanup")
     counts = {"raster": kernels[0].launches, "attention": kernels[1].launches, "k3": kernels[2].launches,
-              "k4": kernels[3].launches, "k3_second_order": kernels[2].launches}
+              "k4": kernels[3].launches, "k3_second_order": kernels[2].launches,
+              "epilogue": kernels[4].launches}
     print(f"  launches in this phase: {counts}")
     _print_times(t)
     return counts, t, runner
@@ -2893,7 +3002,7 @@ def _full_width_training():
     from foundationpose_torch.datasets import make_refiner_batch, make_scorer_batch
     from foundationpose_torch.meshio import compute_mesh_diameter
     from foundationpose_torch.models import init_refine_net, init_score_net, training
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
     from foundationpose_torch.pipeline import RefinerCfg, ScorerCfg, make_mesh_tensors
 
     mesh = _bench_mesh()
@@ -2914,13 +3023,14 @@ def _full_width_training():
 
     def counted(fn, *args):
         torch.cuda.synchronize()
-        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
         out = fn(*args)
         torch.cuda.synchronize()
-        return out, (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches)
+        return out, (raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches,
+                     epilogue_cuda.KERNEL.launches)
 
     t, losses, per = {}, {}, {}
-    counts = {"raster": 0, "attention": 0}
+    counts = {"raster": 0, "attention": 0, "epilogue": 0}
     for kind in ("refiner", "scorer"):
         losses[kind], per[kind] = [], []
         for _ in range(TRAIN_STEPS):
@@ -2930,6 +3040,7 @@ def _full_width_training():
             per[kind].append((kb, ks))
             counts["raster"] += kb[0] + ks[0]
             counts["attention"] += kb[1] + ks[1]
+            counts["epilogue"] += kb[2] + ks[2]
         if kind == "refiner":  # (a) every trained tensor of this bf16 step has a gradient
             sd = nets[kind].state_dict(keep_vars=True)
             bad = [n for n, x in sd.items() if not n.endswith("num_batches_tracked")
@@ -2938,11 +3049,13 @@ def _full_width_training():
                 raise AssertionError(f"full-width refiner step: no finite gradient for {bad[:4]}")
         ls = [float(x) for x in losses[kind]]
         print(f"  (c) {kind} bf16 n={TRAIN_N}: losses {[round(x, 5) for x in ls]}; launches per "
-              f"(batch, step) as (K1, K2): {per[kind]}")
+              f"(batch, step) as (K1, K2, epilogue): {per[kind]}")
         if not np.isfinite(ls).all():
             raise AssertionError(f"{kind} losses are not finite")
-        if any(kb != (2, 0) or ks != (0, 2) for kb, ks in per[kind]):
-            raise AssertionError(f"{kind}: a batch must launch K1 twice and a step K2 twice")
+        # the step's forward runs under autograd: its epilogues are the plain ops
+        if any(kb != (2, 0, 0) or ks != (0, 2, 0) for kb, ks in per[kind]):
+            raise AssertionError(f"{kind}: a batch must launch K1 twice, a step K2 twice, and neither "
+                                 f"an epilogue kernel")
         t[f"train_{kind}_loss_first"], t[f"train_{kind}_loss_last"] = ls[0], ls[-1]
 
     batches = {k: make[k]() for k in nets}
@@ -3135,7 +3248,7 @@ def _sharded_register_check(counts):
     import torch
 
     from foundationpose_torch.geometry.projection import depth_to_xyz_map
-    from foundationpose_torch.ops import attention_cuda, raster_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
     from foundationpose_torch.parallel import make_device_mesh
     from foundationpose_torch.pipeline import EstimatorCfg, FoundationPose, RasterCfg, RefinerCfg, ScorerCfg
     from foundationpose_torch.pipeline.crops import make_crop_inputs
@@ -3167,12 +3280,13 @@ def _sharded_register_check(counts):
                             device_mesh=mesh2)
         p1 = e1.register(K_FULL, *frame, iteration=5)
         torch.cuda.synchronize()
-        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = 0
+        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
         p2 = e2.register(K_FULL, *frame, iteration=5)
         torch.cuda.synchronize()
         k1, k2 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
         counts["raster"] += k1
         counts["attention"] += k2
+        counts["epilogue"] += epilogue_cuda.KERNEL.launches
         same = bool(torch.equal(e1.order, e2.order))
         d_pose = float(np.abs(p1 - p2).max())
         d_all = float((e1.poses - e2.poses).abs().max())
@@ -3481,7 +3595,7 @@ def parallel_quad_tooling_phase():
 
     from foundationpose_torch.utils import profiling
 
-    counts = {"raster": 0, "attention": 0, "k3": 0}
+    counts = {"raster": 0, "attention": 0, "k3": 0, "epilogue": 0}
     seg = {}
     t, one = _sharded_register_check(counts)
     t.update(_dp_check(counts))
@@ -3606,6 +3720,7 @@ def main():
     phase("build kernels", 400, build_phase)
     k1_err = phase("K1 tile rasterizer vs brute", 240, k1_phase)
     k2_err = phase("K2 attention vs plain", 120, k2_phase)
+    epi = phase("fused layer epilogue vs plain", 120, epilogue_phase)
     seg = phase("K3, K4 segment-adds vs plain at the NeRF shapes", 240, k3_k4_phase)
     phase("small slice: card vs CPU plain path", 180, small_slice_phase)
     phase("small NeRF slice: card vs CPU plain path", 180, small_nerf_phase)
@@ -3671,6 +3786,12 @@ def main():
              **{f"quad_{k}": seg[f"k3_quad_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         entry("K4 factored segment-add", "segment_add.cu", "foundationpose_tpu/ops/pallas_scatter.py:275",
               mf_counts["k4"] + ep_counts["k4"], seg["k4_err"], "k4", seg),
+        # no TPU counterpart: XLA fused the layers' epilogues into the convolutions
+        dict(entry("fused layer epilogue", "epilogue.cu", None,
+                   sum(c.get("epilogue", 0) for c in (counts, rs_counts, fn_counts, vid_counts, mf_counts,
+                                                      ep_counts, tr_counts, pq_counts)),
+                   epi["epi_err"], "epi", epi),
+             **{k: v for k, v in epi.items() if k.count("x") == 3}),
     ]
     print(_CARD)
     print(json.dumps({"kernels": kernels}))

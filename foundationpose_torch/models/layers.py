@@ -5,9 +5,12 @@ each layer computes in the `dtype` it is called with (bf16 on the main
 path), with f32 bias adds and normalization statistics, as the
 reference does. Submodule and parameter names follow the reference torch
 modules (learning/models/network_modules.py), so `state_dict()` keys are
-the names models/convert.py of the JAX package reads.
+the names models/convert.py of the JAX package reads. What follows each
+conv's and linear's product (bias, BN, residual, ReLU) is `epilogue`:
+one fused kernel on a card, the plain ops elsewhere, bit-equal.
 
-Images are NCHW inside the trunks; token tensors are (B, L, D).
+Images are NCHW inside the trunks (channels-last in memory on the main
+path); token tensors are (B, L, D).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 
 from .. import torch_config  # noqa: F401
 from ..ops.attention import attention_core
+from ..ops import epilogue_cuda
+from ..utils import profiling
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -30,21 +35,56 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor | None, shape, dtype) -> torch
     return y.to(dtype)
 
 
+def epilogue(y, dtype, bias=None, bn=None, residual=None, relu=False, axis=-1):
+    """The chain after a conv's or linear's product `y` (in `dtype`), its
+    channels `axis` (1 for a conv's NCHW output, -1 for a linear's): the
+    bias added in f32 and rounded to dtype, the inference BN `bn` (a
+    BatchNorm2d, over dim 1) in f32 and rounded, `residual` added, ReLU.
+
+    On a card, with no gradient wanted and rows of contiguous channels
+    (a channels-last conv output, a linear output), one kernel
+    (ops/epilogue_cuda.py) runs the chain bit-equal to the plain ops and
+    writes it over y, the product's fresh output; every other call (the
+    CPU, training under autograd, other layouts: where
+    `epilogue_cuda.refusal` gives a reason) runs the plain ops. While the
+    recorder records (utils/profiling.py), its counters `epilogue.fused`
+    and `epilogue.plain` count the calls of each path."""
+    params = [] if bias is None else [bias]
+    if bn is not None:
+        params += [bn.running_mean, bn.running_var, bn.weight, bn.bias]
+    fused = epilogue_cuda.refusal(y, axis, residual, params) is None
+    if profiling.recording():
+        profiling.count("epilogue.fused" if fused else "epilogue.plain")
+    if fused:
+        stats = None
+        if bn is not None:
+            inv = torch.rsqrt(bn.running_var + BN_EPS)
+            stats = (bn.running_mean, inv, bn.weight, bn.bias)
+        return epilogue_cuda.epilogue_cuda(y, axis, bias, stats, residual, relu)
+    y = _add_bias(y, bias, (1, -1, 1, 1) if axis == 1 else (-1,), dtype)
+    if bn is not None:
+        y = bn(y)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
 class Conv2d(nn.Conv2d):
-    """Conv with padding (k-1)//2, computed in the call's dtype."""
+    """Conv with padding (k-1)//2, computed in the call's dtype, then
+    `epilogue` (bias, optional BN, residual and ReLU)."""
 
     def __init__(self, cin, cout, k, stride=1, bias=True):
         super().__init__(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=bias)
 
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, bn=None, residual=None, relu=False):
         y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
-        return _add_bias(y, self.bias, (1, -1, 1, 1), dtype)
+        return epilogue(y, dtype, self.bias, bn, residual, relu, axis=1)
 
 
 class Linear(nn.Linear):
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, residual=None, relu=False):
         y = F.linear(x.to(dtype), self.weight.to(dtype))
-        return _add_bias(y, self.bias, (-1,), dtype)
+        return epilogue(y, dtype, self.bias, residual=residual, relu=relu)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -87,9 +127,8 @@ class ConvBNReLU(nn.Module):
         self.net = nn.ModuleList(mods)
 
     def forward(self, x, dtype=torch.float32):
-        for m in self.net:
-            x = m(x, dtype)
-        return x
+        bn = self.net[1] if isinstance(self.net[1], BatchNorm2d) else None
+        return self.net[0](x, dtype, bn=bn, relu=True)
 
 
 class ResnetBasicBlock(nn.Module):
@@ -103,14 +142,8 @@ class ResnetBasicBlock(nn.Module):
         self.bn2 = BatchNorm2d(c) if use_bn else None
 
     def forward(self, x, dtype=torch.float32):
-        out = self.conv1(x, dtype)
-        if self.bn1 is not None:
-            out = self.bn1(out)
-        out = F.relu(out)
-        out = self.conv2(out, dtype)
-        if self.bn2 is not None:
-            out = self.bn2(out)
-        return F.relu(out + x.to(dtype))
+        out = self.conv1(x, dtype, bn=self.bn1, relu=True)
+        return self.conv2(out, dtype, bn=self.bn2, residual=x.to(dtype), relu=True)
 
 
 def positional_embedding(d_model: int, max_len: int, device=None) -> torch.Tensor:
@@ -137,11 +170,12 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = Linear(d, d)
 
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, residual=None):
+        """`residual` is added to the output in out_proj's epilogue."""
         qkv = F.linear(x.to(dtype), self.in_proj_weight.to(dtype))
-        qkv = _add_bias(qkv, self.in_proj_bias, (-1,), dtype)
+        qkv = epilogue(qkv, dtype, self.in_proj_bias)
         out = attention_core(qkv, self.num_heads).to(dtype)
-        return self.out_proj(out, dtype)
+        return self.out_proj(out, dtype, residual=residual)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -157,10 +191,9 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d)
 
     def forward(self, x, dtype=torch.float32):
-        y = self.self_attn(x, dtype)
-        x = self.norm1(x + y)
-        ff = self.linear2(F.relu(self.linear1(x, dtype)), dtype)
-        return self.norm2(x + ff)
+        x = self.norm1(self.self_attn(x, dtype, residual=x))
+        ff = self.linear1(x, dtype, relu=True)
+        return self.norm2(self.linear2(ff, dtype, residual=x))
 
 
 # ----------------------------------------------------------------- init

@@ -43,8 +43,9 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
     n_valid).
 
     The median is the JAX package's two-pass 256-bin counting bisection
-    (each pass narrows the range 256x with one (pixels x 256) compare),
-    reproduced step for step: torch.median takes another order statistic.
+    (each pass narrows the range 256x by the count of valid depths at
+    or below each of 256 edges), reproduced step for step: torch.median
+    takes another order statistic.
     Constants are filled on the device and bins picked by index_select,
     so a register step captures it: no host copy, no host read."""
     H, W = depth.shape
@@ -70,12 +71,21 @@ def device_guess_translation(depth: torch.Tensor, mask: torch.Tensor, K: torch.T
     lo0 = torch.amin(torch.where(vmask, vals, inf))
     hi0 = torch.amax(torch.where(vmask, vals, -inf))
     edges = torch.arange(1, 257, dtype=torch.float32, device=dev) / 256.0
+    # The JAX package counts the valid depths <= each edge as (pixels x
+    # 256) compares summed, which here would cast them to an int64
+    # temporary (600 MiB at 640 x 480). The same counts: the valid depths
+    # sorted, every other pixel +inf after them, and a binary search per
+    # edge, capped at n (+inf <= t only where t is +inf, where every
+    # valid depth counts). The edges are NaN only when every valid depth
+    # is +inf: then the count reads n where the compares read 0, and
+    # either way the first bin is taken.
+    ranked = torch.sort(torch.where(vmask, vals, inf)).values
 
     def kth(k):
         lo, hi = lo0, hi0
         for _ in range(2):
             t = lo + (hi - lo) * edges  # (256,) upper bin edges
-            cnt = torch.sum(vmask[:, None] & (vals[:, None] <= t[None]), dim=0)
+            cnt = torch.minimum(torch.searchsorted(ranked, t, right=True), n)
             b = torch.argmax((cnt > k).to(torch.int32))  # first bin past k
             below, edge = t.index_select(0, torch.stack([torch.clamp(b - 1, min=0), b]))
             lo = torch.where(b > 0, below, lo)

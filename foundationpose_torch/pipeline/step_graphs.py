@@ -56,14 +56,15 @@ import time
 
 import torch
 
-from ..ops import attention_cuda, raster_cuda, segment_add_cuda
+from ..ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
 from ..utils import profiling
 
 WARMUP_RUNS = 2  # eager runs on a side stream before a tracking step's capture
 
 
 def _kernel_counters():
-    return (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    return (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4,
+            epilogue_cuda.KERNEL)
 
 
 def _tensors(out) -> tuple:

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
 from foundationpose_torch.ops.attention import attention_core_plain
 from foundationpose_torch.ops.rasterizer import render_mesh, render_mesh_brute
 
@@ -169,8 +169,9 @@ def test_track_chain_replays_per_frame_packed(card):
 def test_captured_steps_match_eager_bodies_and_count_replays(card):
     """Every captured tracking step (pipeline/step_graphs.py) bit-equal to
     its eager body on the card, on two frames (the capture, then a replay
-    on new inputs); a replay adds the K1 / K2 launches its capture recorded
-    (2 and 4 a tracked frame of 2 iterations; 2M and 4 for M objects)."""
+    on new inputs); a replay adds the K1 / K2 / epilogue launches its
+    capture recorded (2, 4 and 50 a tracked frame of 2 iterations, 25
+    epilogues a RefineNet forward; 2M, 4 and 50 for M objects)."""
     from chip_smoke import K_SMALL, _estimator, _frame, _small_scene, captured_against_eager
     from foundationpose_torch.pipeline import MultiTracker
 
@@ -189,15 +190,15 @@ def test_captured_steps_match_eager_bodies_and_count_replays(card):
     for name, (got, want, graphs) in paths.items():
         assert torch.equal(got, want), name
         assert len(graphs) == 1, name
-    for name, per_replay in (("track_packed (full frame)", (2, 4)),
-                             ("multi_packed (full frame)", (4, 4))):
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, epilogue_cuda.KERNEL)
+    for name, per_replay in (("track_packed (full frame)", (2, 4, 50)),
+                             ("multi_packed (full frame)", (4, 4, 50))):
         (_key, step), = paths[name][2].items()
-        assert dict(step.launches) == {raster_cuda.KERNEL: per_replay[0],
-                                       attention_cuda.KERNEL: per_replay[1]}
-        r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
+        assert dict(step.launches) == dict(zip(kernels, per_replay))
+        before = [k.launches for k in kernels]
         step(*[x.clone() for x in step.inputs])
         torch.cuda.synchronize()
-        assert (raster_cuda.KERNEL.launches - r0, attention_cuda.KERNEL.launches - a0) == per_replay
+        assert tuple(k.launches - n for k, n in zip(kernels, before)) == per_replay
 
 
 def _row_bound(abs_sum):
@@ -441,7 +442,9 @@ def test_replayed_steps_read_their_device_stages(card):
         assert [s.name for s in stages(req)] == ["prep"] + per_iter
         assert all(s.duration > 0 for s in stages(req))
     assert not frames[2].has_device_spans()
-    assert profiling.counters() == {"device_reads_dropped": 1}
+    # besides the captures' epilogue paths (models/layers.py::epilogue)
+    assert {k: v for k, v in profiling.counters().items() if not k.startswith("epilogue.")} == {
+        "device_reads_dropped": 1}
     captures = est._graphs.captures
     assert captures == 2
     est._graphs.clear()

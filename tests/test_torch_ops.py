@@ -38,7 +38,8 @@ def test_depth_filters(seed):
     np.testing.assert_allclose(bt, bj, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["object", "empty_mask", "one_pixel"])
+@pytest.mark.parametrize("case", ["object", "empty_mask", "one_pixel", "inf_depth", "all_inf",
+                                  "ties"])
 def test_device_guess_translation(case):
     d = _depth(2)
     mask = np.zeros(d.shape, np.uint8)
@@ -47,6 +48,15 @@ def test_device_guess_translation(case):
     elif case == "one_pixel":
         mask[20, 20] = 1
         d[20, 20] = 0.75
+    elif case == "inf_depth":  # +inf depths are valid: the top edges reach them
+        mask[8:30, 12:40] = 1
+        d[8:12, 12:40] = np.inf
+    elif case == "all_inf":  # every valid depth +inf: NaN edges
+        mask[8:30, 12:40] = 1
+        d[8:30, 12:40] = np.inf
+    elif case == "ties":  # a handful of distinct depths, each many times
+        mask[8:30, 12:40] = 1
+        d[8:30, 12:40] = np.round(d[8:30, 12:40], 1)
     K = np.array([[300.0, 0, 28.0], [0, 300.0, 20.0], [0, 0, 1.0]], np.float32)
     cj, nj = j_guess(jnp.asarray(d), jnp.asarray(mask), jnp.asarray(K))
     ct, nt = t_guess(torch.as_tensor(d), torch.as_tensor(mask), torch.as_tensor(K))

@@ -222,17 +222,19 @@ def test_tf32_is_off():
 def test_kernel_sources_and_build_key():
     """Every kernel is a CUDA source in the package, keyed by content; K3
     and K4 share segment_add.cu and so one library."""
-    from foundationpose_torch.ops import attention_cuda, raster_cuda, segment_add_cuda
+    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
     from foundationpose_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
 
-    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4)
+    kernels = (raster_cuda.KERNEL, attention_cuda.KERNEL, segment_add_cuda.K3, segment_add_cuda.K4,
+               epilogue_cuda.KERNEL)
     for k in kernels:
         assert os.path.exists(os.path.join(CSRC_DIR, k.source))
         assert "arch=compute_90a,code=sm_90a" in k.flags
         path = k.path()
         assert path.startswith(BUILD_DIR) and path.endswith(".so")
     assert "--fmad=false" in raster_cuda.KERNEL.flags
-    assert len({k.path() for k in kernels[:3]}) == 3
+    assert "--fmad=false" in epilogue_cuda.KERNEL.flags
+    assert len({k.path() for k in kernels[:3] + kernels[4:]}) == 4
     assert segment_add_cuda.K3.path() == segment_add_cuda.K4.path()
     assert segment_add_cuda.K3.source == "segment_add.cu"
     with open(os.path.join(CSRC_DIR, "segment_add.cu")) as f:
@@ -243,6 +245,12 @@ def test_kernel_sources_and_build_key():
     # bf16 products on the tensor cores, operands through ldmatrix and cp.async
     for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", "ldmatrix", "cp.async"):
         assert op in src, op
+    with open(os.path.join(CSRC_DIR, "epilogue.cu")) as f:
+        src = f.read()
+    # the plain ops' roundings: explicit round-to-nearest adds and multiplies, no rsqrt
+    for op in ("__fadd_rn", "__fsub_rn", "__fmul_rn", "__float2bfloat16_rn"):
+        assert op in src, op
+    assert "rsqrt" not in src.split("#include")[-1]
 
 
 def test_unsupported_device_raises():
