@@ -2179,20 +2179,6 @@ def _reference_views(mesh, hw, K, device):
             cam_in_obs)
 
 
-def _nerf_runner(cfg, K, views, device):
-    """run_neural_object_field's set-up: scene bounds, normalization, runner."""
-    import dataclasses
-
-    from foundationpose_torch.nerf.runner import NerfRunner
-    from foundationpose_torch.nerf.scene import compute_scene_bounds, preprocess_data
-
-    rgbs, depths, masks, cam_in_obs = views
-    sc, tr, pts = compute_scene_bounds(K, rgbs, depths, masks, cam_in_obs)
-    cfg = dataclasses.replace(cfg, sc_factor=sc, translation=tuple(np.asarray(tr).tolist()))
-    rn, dn, pn = preprocess_data(rgbs, depths, masks, cam_in_obs, sc, tr)
-    return NerfRunner(cfg, rn, dn, masks, pn, K, build_pcd=pts, device=device)
-
-
 # Every NerfCfg option that ships off, on at once: the small slice's
 # (SMALL_NERF_OPTIONS) and the full-width run's (NERF_OPTIONS).
 SMALL_NERF_OPTIONS = dict(n_importance=8, occ_keep_frac=0.75, trunc_decay_type="linear", trunc_start=0.05,
@@ -2260,7 +2246,7 @@ def nerf_slice(layout, options):
 
     import torch
 
-    from foundationpose_torch.nerf import NerfCfg
+    from foundationpose_torch.nerf import NerfCfg, make_runner
     from foundationpose_torch.ops import segment_add_cuda
 
     K, views = _small_nerf_views()
@@ -2268,7 +2254,7 @@ def nerf_slice(layout, options):
     cfg = NerfCfg(n_step=10, n_rand=256, n_samples=16, n_samples_around_depth=16, num_levels=6,
                   finest_res=128, log2_hashmap_size=14, amp=False, grid_layout=layout)
     cfg = dataclasses.replace(cfg, **options)
-    runners = {dev: _nerf_runner(cfg, K, views, dev) for dev in ("cpu", "cuda")}
+    runners = {dev: make_runner(cfg, K, *views, device=dev) for dev in ("cpu", "cuda")}
     cpu = runners["cpu"]
     gen = torch.Generator().manual_seed(1)
     name = f"{layout}{' options on' if options else ''}"
@@ -2359,7 +2345,7 @@ def model_free_phase():
     import torch
     from scipy.spatial import cKDTree
 
-    from foundationpose_torch.nerf import NerfCfg, run_neural_object_field
+    from foundationpose_torch.nerf import NerfCfg, make_runner, run_neural_object_field
     from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
     from foundationpose_torch.pipeline import EstimatorCfg, RefinerCfg, ScorerCfg
 
@@ -2414,7 +2400,7 @@ def model_free_phase():
     if reg[0] < 6 or reg[1] < 12 or reg[2] != REGISTER_EPILOGUES:
         raise AssertionError(f"register on the reconstruction launched too few kernels: {reg}")
 
-    cuda_runner = _nerf_runner(NerfCfg(n_step=NERF_STEPS, grid_layout="cuda"), K_FULL, views, "cuda")
+    cuda_runner = make_runner(NerfCfg(n_step=NERF_STEPS, grid_layout="cuda"), K_FULL, *views, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     losses, stamps = [], [time.perf_counter()]
     for _ in range(NERF_CUDA_STEPS):
@@ -2539,7 +2525,7 @@ def entry_point_phase(views):
 
     from foundationpose_torch.cli import run_nerf
     from foundationpose_torch.meshio import load_mesh
-    from foundationpose_torch.nerf import NerfCfg, run_neural_object_field
+    from foundationpose_torch.nerf import NerfCfg, make_runner, run_neural_object_field
     from foundationpose_torch.nerf.texture import bake_texture
     from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda, segment_add_cuda
 
@@ -2610,7 +2596,7 @@ def entry_point_phase(views):
                 raise _Interrupt
 
         stage("options_checks")
-        first = _nerf_runner(cfg, K_FULL, views, "cuda")
+        first = make_runner(cfg, K_FULL, *views, device="cuda")
         stage("first_runner_setup")
         kw = dict(ckpt_dir=ck, i_weights=100, artifact_dir=art2, i_img=100, i_mesh=100, i_pose=100)
         try:
@@ -2618,7 +2604,7 @@ def entry_point_phase(views):
         except _Interrupt:
             pass
         stage("first_train_to_120")
-        resumed = _nerf_runner(cfg, K_FULL, views, "cuda")
+        resumed = make_runner(cfg, K_FULL, *views, device="cuda")
         resumed.resume(ck)
         at = resumed.global_step
         resumed.train(metric_sink=lambda it, s: sunk.append((it, s)), **kw)
@@ -3469,7 +3455,7 @@ def _quad_check(counts, seg):
     version, timed in turns with it and index_add_ (`k3_on_step`)."""
     import torch
 
-    from foundationpose_torch.nerf import NerfCfg
+    from foundationpose_torch.nerf import NerfCfg, make_runner
     from foundationpose_torch.ops import segment_add_cuda
 
     for options in ({}, SMALL_NERF_OPTIONS):
@@ -3479,7 +3465,7 @@ def _quad_check(counts, seg):
             raise AssertionError(f"quad steps launched K3 {k3} and K4 {k4} times")
     views = _reference_views(_bench_mesh(), (480, 640), K_FULL, "cuda")
     cfg = NerfCfg(grid_layout="quad")
-    runner = _nerf_runner(cfg, K_FULL, views, "cuda")
+    runner = make_runner(cfg, K_FULL, *views, device="cuda")
     launched = segment_add_cuda.K3.launches
     loss = float(runner.train_step(torch.Generator(device="cuda").manual_seed(1))[0])
     k3 = segment_add_cuda.K3.launches - launched

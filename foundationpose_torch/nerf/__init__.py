@@ -23,6 +23,28 @@ from .texture import bake_texture
 logger = logging.getLogger(__name__)
 
 
+def make_runner(cfg: NerfCfg, K: np.ndarray, rgbs: np.ndarray, depths: np.ndarray, masks: np.ndarray,
+                cam_in_obs: np.ndarray, seed: int = 0, device="cuda") -> NerfRunner:
+    """The runner that run_neural_object_field trains (run_nerf.py:18-46,
+    CV convention): the scene's bounds, the frames and poses normalized
+    by them, and a NerfRunner on the normalized scene whose cfg holds the
+    bounds."""
+    check_supported(cfg)
+    rgbs = np.asarray(rgbs)
+    depths = np.asarray(depths).astype(np.float32)
+    masks = np.asarray(masks)
+    cam_in_obs = np.asarray(cam_in_obs).astype(np.float64)
+
+    sc_factor, translation, pts_norm = compute_scene_bounds(
+        K, rgbs, depths, masks, cam_in_obs, eps=cfg.dbscan_eps, min_samples=cfg.dbscan_min_samples,
+    )
+    logger.info("scene bounds: sc=%.3f translation=%s", sc_factor, translation)
+    cfg = dataclasses.replace(cfg, sc_factor=sc_factor, translation=tuple(np.asarray(translation).tolist()))
+
+    rgbs_n, depths_n, poses_n = preprocess_data(rgbs, depths, masks, cam_in_obs, sc_factor, translation)
+    return NerfRunner(cfg, rgbs_n, depths_n, masks, poses_n, K, build_pcd=pts_norm, seed=seed, device=device)
+
+
 def run_neural_object_field(
     cfg: NerfCfg,
     K: np.ndarray,
@@ -42,21 +64,9 @@ def run_neural_object_field(
     bake -> un-normalize to meters. Trains and renders on `device`; with
     `artifact_dir` the training dumps images and meshes every i_img /
     i_mesh steps (NerfRunner.train)."""
-    check_supported(cfg)
     rgbs = np.asarray(rgbs)
     depths = np.asarray(depths).astype(np.float32)
-    masks = np.asarray(masks)
-    cam_in_obs = np.asarray(cam_in_obs).astype(np.float64)
-
-    sc_factor, translation, pts_norm = compute_scene_bounds(
-        K, rgbs, depths, masks, cam_in_obs, eps=cfg.dbscan_eps, min_samples=cfg.dbscan_min_samples,
-    )
-    logger.info("scene bounds: sc=%.3f translation=%s", sc_factor, translation)
-    cfg = dataclasses.replace(cfg, sc_factor=sc_factor, translation=tuple(np.asarray(translation).tolist()))
-
-    rgbs_n, depths_n, poses_n = preprocess_data(rgbs, depths, masks, cam_in_obs, sc_factor, translation)
-    runner = NerfRunner(cfg, rgbs_n, depths_n, masks, poses_n, K, build_pcd=pts_norm, seed=seed,
-                        device=device)
+    runner = make_runner(cfg, K, rgbs, depths, masks, cam_in_obs, seed=seed, device=device)
     runner.train(seed=seed, artifact_dir=artifact_dir, i_img=i_img, i_mesh=i_mesh)
 
     mesh = runner.extract_mesh(voxel_size=cfg.mesh_resolution)

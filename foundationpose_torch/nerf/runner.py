@@ -15,15 +15,25 @@ The optimizer is optax's chain written out: clip_by_global_norm, Adam
 lrate * decay_rate ** (count / n_step), count being the number of
 updates already applied.
 
-Random draws come from a `torch.Generator` on the runner's device; `train`
-seeds it from (seed, step) before each step, as the JAX package folds the
-step into its key, so a resumed run draws what an uninterrupted one does.
+Random draws come from a `torch.Generator` on the runner's device; `step`
+(one step of `train`) seeds it from (seed, step) before each step, as the
+JAX package folds the step into its key, so a resumed run draws what an
+uninterrupted one does; `step_draws` gives a step's draws again.
 The render and the train step also take the draws themselves (`draw`:
 batch indices, the occupancy jitter, the around-depth jitter, the
 importance uniforms and the near-band tie jitter) so that tests can pin
 them. On a CUDA device the host runs only what the JAX package runs on the
 host: ray building, the denoise, the sample grid of the extraction,
 marching tetrahedra and the artifact files.
+
+While the recorder records (utils/profiling.py), a train step is a
+request of kind "nerf": the host span `nerf.step` around its dispatch,
+the device stages `nerf.sample` (batch gather, frame corrections, both
+samplers), `nerf.encode` (the hash-grid forward), `nerf.mlp` (the MLP,
+band weights and losses), `nerf.backward` (autograd's backward, less the
+table gradient), `nerf.grid_backward` (the table gradient, marked inside
+the encoder's backward, ops/hashgrid.py) and `nerf.adam` (clip and
+update), and the counter `nerf.points`, the points encoded.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from .. import torch_config
 from ..meshio import TriMesh
 from ..ops.hashgrid import LAYOUTS, HashGridCfg, hashgrid_encode, init_hashgrid
 from ..ops.marching import marching_tetrahedra
+from ..utils import profiling
 from ..utils.checkpoint import load_train_state, save_train_state
 from .config import NerfCfg
 from .model import init_nerf_mlp, pose_array_matrices, sh_encode
@@ -233,6 +244,7 @@ class NerfRunner:
         self.c2w = torch.as_tensor(self.poses.astype(np.float32), device=dev)
         self.opt = init_opt_state(dict(self.model.named_parameters()))
         self.global_step = 0
+        self._gen = torch.Generator(device=dev)
 
     def load_params(self, state_dict: dict, opt: dict | None = None) -> None:
         """Set the parameters (and, with `opt` = {"count", "mu", "nu"},
@@ -367,8 +379,12 @@ class NerfRunner:
         def run_network(pts_w, valid, table_grad=True):
             S = pts_w.shape[1]
             valid = valid & torch.all(torch.abs(pts_w) <= 1.0, dim=-1)
+            if profiling.recording():
+                profiling.count("nerf.points", N * S)
+            profiling.mark("nerf.encode")
             emb = hashgrid_encode(self.model.grid, pts_w.reshape(-1, 3), self.grid_cfg,
                                   table_grad=table_grad).reshape(N, S, -1)
+            profiling.mark("nerf.mlp")
             raw = self.model.mlp(emb, view1[:, None].expand(N, S, view1.shape[-1]), dtype)
             return raw, valid
 
@@ -494,10 +510,9 @@ class NerfRunner:
         (default: the runner's global_step). Draws not given come from
         `generator` (on the runner's device). Returns (loss, aux, grads by
         parameter name)."""
+        profiling.mark("nerf.sample")
         if batch_idx is None:
-            batch_idx = torch.randint(
-                0, self.n_rays, (self.cfg.n_rand,), generator=generator, device=self.device
-            )
+            batch_idx = self._batch_rows(generator)
         batch = {k: v[batch_idx] for k, v in self.rays.items()}
         given = (u_occ, u_depth, u_imp, u_tie)
         if any(d is None for d in given):
@@ -506,6 +521,7 @@ class NerfRunner:
         self.model.zero_grad(set_to_none=True)
         loss, aux = self.loss(batch, u_occ, u_depth, u_imp, u_tie,
                               step=self.global_step if step is None else step)
+        profiling.mark("nerf.backward")
         loss.backward()
         grads = {
             n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -518,13 +534,33 @@ class NerfRunner:
         """One optimizer update of the model's parameters, in place."""
         apply_gradients(dict(self.model.named_parameters()), grads, self.opt, self.cfg)
 
+    def _batch_rows(self, generator):
+        return torch.randint(0, self.n_rays, (self.cfg.n_rand,), generator=generator, device=self.device)
+
+    def step_draws(self, seed: int, step: int):
+        """The draws that `step(seed)` takes at global step `step`, drawn
+        again: (batch_idx, u_occ, u_depth, u_imp, u_tie) as
+        `loss_and_grads` takes them."""
+        gen = torch.Generator(device=self.device).manual_seed(_step_seed(seed, step))
+        idx = self._batch_rows(gen)
+        return (idx, *self.draw(len(idx), gen))
+
     def train_step(self, generator=None, batch_idx=None, u_occ=None, u_depth=None, u_imp=None, u_tie=None):
         """One optimizer step at global_step; returns (loss, aux) as device
-        tensors."""
-        loss, aux, grads = self.loss_and_grads(batch_idx, u_occ, u_depth, u_imp, u_tie, generator=generator)
-        self.apply_gradients(grads)
+        tensors. A request of kind "nerf" while the recorder records."""
+        with profiling.request("nerf"), profiling.span("nerf.step"), profiling.stages(self.device):
+            loss, aux, grads = self.loss_and_grads(batch_idx, u_occ, u_depth, u_imp, u_tie, generator=generator)
+            profiling.mark("nerf.adam")
+            self.apply_gradients(grads)
         self.global_step += 1
         return loss, aux
+
+    def step(self, seed: int = 0):
+        """One step of `train` seeded with `seed`: the device generator
+        seeded from (seed, global_step), then `train_step`. Returns (loss,
+        aux) as device tensors."""
+        self._gen.manual_seed(_step_seed(seed, self.global_step))
+        return self.train_step(self._gen)
 
     def train(self, seed: int = 0, ckpt_dir=None, i_weights: int = 500, artifact_dir=None,
               i_img: int = 500, i_mesh: int = 500, i_pose: int = 500, metric_sink=None):
@@ -538,11 +574,9 @@ class NerfRunner:
         (`save_weights`; `resume` reads it), with `artifact_dir` it dumps
         images, meshes and poses at the i_img / i_mesh / i_pose cadence
         (nerf_runner.py:593-680)."""
-        gen = torch.Generator(device=self.device)
         n = self.cfg.n_step + 1
         for it in range(self.global_step, n):
-            gen.manual_seed(_step_seed(seed, it))
-            loss, aux = self.train_step(gen)
+            loss, aux = self.step(seed)
             if it % max(1, n // 10) == 0:
                 names = ["loss", *aux]
                 vals = torch.stack([loss, *aux.values()]).tolist()

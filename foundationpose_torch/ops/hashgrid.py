@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import torch_config  # noqa: F401
+from ..utils import profiling
 from .segment_add import factored_segment_add, segment_add_planes
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -512,8 +513,13 @@ class _HashGridEncode(torch.autograd.Function):
         g = g.to(torch.float32).contiguous()
         d_emb = d_x = None
         if ctx.table_grad and ctx.needs_input_grad[0]:
+            # A NeRF step's device stage nerf.grid_backward (utils/profiling.py;
+            # on a card this runs on autograd's worker thread, on the step's
+            # stream); the rest of the backward is nerf.backward again.
+            profiling.mark("nerf.grid_backward")
             with torch.no_grad():
                 d_emb = table_grad(cfg, embeddings.shape[0], x, g)
+            profiling.mark("nerf.backward")
         if ctx.needs_input_grad[1]:
             if torch.is_grad_enabled() and embeddings.requires_grad:
                 rows, oob = corner_rows(x.detach(), cfg)

@@ -5,7 +5,8 @@ Port of foundationpose_tpu/utils/profiling.py (`stage_timer`,
 `timing_report`, `trace`), grown into a recorder of requests:
 
 * A request is one `register`, one tracked frame (`track_one_async` to
-  its `TrackResult.result()`) or one train step (`models/training.py`):
+  its `TrackResult.result()`), one train step (`models/training.py`) or
+  one neural-object-field step (`nerf/runner.py`, kind "nerf"):
   its spans share the request's id. A span has a name, a start and an
   end (seconds on the host's `perf_counter`), its parent span (an index
   into the request's spans, or None) and its clock: "host" for what the
@@ -13,7 +14,11 @@ Port of foundationpose_tpu/utils/profiling.py (`stage_timer`,
   device ran them.
 * Device stages. A step body calls `mark(name)` where a stage begins
   (`prep`, `crops`, `refiner`, `update`, `score.crops`, `score.net`,
-  `rank`, `train.*`); a mark of the stage already running is nothing.
+  `rank`, `train.*`, `nerf.sample`, `nerf.encode`, `nerf.mlp`,
+  `nerf.backward`, `nerf.grid_backward`, `nerf.adam`); a mark of the stage
+  already running is nothing. A mark made on autograd's worker thread
+  during a backward the body started (`nerf.grid_backward`) lands in the
+  body's marks like any other.
   While a `StepGraph` captures its body, each mark records a timing
   event made with `external=True`, which becomes an event-record node of
   the CUDA graph, so every replay records it again; these nodes are
