@@ -1989,11 +1989,12 @@ def _row_check(name, out, want, abs_sum):
 def k3_k4_phase():
     """K3 and K4 against their plain versions at the shapes of NerfCfg's
     defaults (2048 rays x 256 samples x 16 levels, 2^22 hashmap): heavy
-    duplicates, K3 with 1% sentinel indices, K4 with 1% zero-cotangent
-    entries at their level's first row. Returns errors and times."""
+    duplicates, K3 with 1% sentinel indices, K4 (folded into the "oct"
+    corner rows) with 1% zero-cotangent entries at their level's first
+    row. Returns errors and times."""
     import torch
 
-    from foundationpose_torch.ops.hashgrid import HashGridCfg
+    from foundationpose_torch.ops.hashgrid import HashGridCfg, oct_levels
     from foundationpose_torch.ops.segment_add import (
         factored_segment_add_plain, segment_add_planes_plain)
     from foundationpose_torch.ops.segment_add_cuda import (
@@ -2026,27 +2027,29 @@ def k3_k4_phase():
     res["k3_bound_ms"], res["k3_bound_by"] = bound(_nbytes(idx, upd) + T * 2 * 4, 2 * M, "f32")
     del idx, upd
 
+    levels = oct_levels(HashGridCfg(layout="oct"))
     sz = torch.as_tensor(sizes, device=dev)
     off = torch.as_tensor(offsets, device=dev)
-    idx = off[:, None] + (torch.rand((L, N), generator=g, device=dev) * sz[:, None]).long()
-    idx[:, : N // 8] = off[:, None] + torch.randint(0, 64, (L, N // 8), generator=g, device=dev)
-    w = torch.rand((8, L, N), generator=g, device=dev)
-    gp = torch.randn((2, L, N), generator=g, device=dev)
-    zero = torch.rand((L, N), generator=g, device=dev) < 0.01  # out-of-bounds points
-    idx = torch.where(zero, off[:, None], idx).to(torch.int32)
-    gp = torch.where(zero, 0.0, gp)
-    out = factored_segment_add_cuda(idx, w, gp, T)
-    want = factored_segment_add_plain(idx, w, gp, T)
-    res["k4_err"] = _row_check(f"K4 (L, N)=({L}, {N}) nw=8 C=2 T={T}", out, want,
-                               factored_segment_add_plain(idx, w, gp.abs(), T))
+    idx = off + (torch.rand((N, L), generator=g, device=dev) * sz).long()
+    idx[: N // 8] = off + torch.randint(0, 64, (N // 8, L), generator=g, device=dev)
+    w = [torch.rand((N, L), generator=g, device=dev) for _ in range(8)]
+    gp = torch.randn((N, L, 2), generator=g, device=dev)
+    zero = torch.rand((N, L), generator=g, device=dev) < 0.01  # out-of-bounds points
+    idx = torch.where(zero, off, idx).to(torch.int32)
+    gp = torch.where(zero[..., None], 0.0, gp)
+    out = factored_segment_add_cuda(idx, w, gp, levels)
+    want = factored_segment_add_plain(idx, w, gp, levels)
+    res["k4_err"] = _row_check(f"K4 (N, L)=({N}, {L}) nw=8 C=2 T={T}, folded", out, want,
+                               factored_segment_add_plain(idx, w, gp.abs(), levels))
     del out, want
-    res["k4_ms"] = _event_ms(lambda: factored_segment_add_cuda(idx, w, gp, T), reps=5)
-    res["k4_plain_ms"] = _event_ms(lambda: factored_segment_add_plain(idx, w, gp, T), reps=3)
+    res["k4_ms"] = _event_ms(lambda: factored_segment_add_cuda(idx, w, gp, levels), reps=5)
+    res["k4_plain_ms"] = _event_ms(lambda: factored_segment_add_plain(idx, w, gp, levels), reps=3)
     res["k4_library_ms"] = None  # no one PyTorch call forms and adds the outer products
-    # Bound: indices, weights and cotangents read once, the (T, 16) f32
-    # table written once; a product and an add per (level, point, column).
+    # Bound: indices, weight planes and cotangents read once, the folded
+    # (T, 2) f32 table written once; a product and an add per (point,
+    # level, corner, channel).
     res["k4_bound_ms"], res["k4_bound_by"] = bound(
-        _nbytes(idx, w, gp) + T * 16 * 4, 2 * 16 * L * N, "f32")
+        _nbytes(idx, *w, gp) + T * 2 * 4, 2 * 16 * L * N, "f32")
     _print_times({k: v for k, v in res.items() if not k.endswith("_err")})
     return res
 

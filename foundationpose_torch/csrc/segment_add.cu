@@ -5,8 +5,12 @@
 //   K3  _seg_add_kernel (launched by _run_block_kernel, reached from
 //       sorted_segment_add_planes): out[idx[i], c] += upd[c, i];
 //   K4  _seg_add_factored_kernel (launched by _segment_add_factored, reached
-//       from factored_segment_add): out[idx[l, n], q*C + c] +=
-//       bf16_rne(w[q, l, n]) * g[c, l, n].
+//       from factored_segment_add): there out[idx[l, n], q*C + c] +=
+//       bf16_rne(w[q, l, n]) * g[c, l, n], a (T, nw*C) block that the JAX
+//       package then rolls back per level by the corner shifts; here the
+//       same products go straight into the rows the rolls move them to,
+//       out[(idx - off[l] + shift[l, q]) mod size[l] + off[l], c], a (T, C)
+//       table.
 // The TPU kernels sort the update stream, split each update into hi and lo
 // bf16 halves and reduce each 1024-row table block with a one-hot matrix
 // product, because a scatter-add serializes on the TPU. None of that is
@@ -38,18 +42,21 @@
 // more time in the shared-memory atomics of the coarse levels' hot rows
 // than the old one-atomic-per-update kernel spent in all.
 //
-// K4 runs one thread per (level, point): it loads the index, the nw weights
-// (rounded to bf16 as the JAX package rounds them) and the C cotangents and
-// forms the nw*C products in f32; the products never reach device memory.
-// Each warp then issues its atomics cooperatively (warp_add_rows). What
-// bounds it: the atomics. At the NeRF shapes the updates fall on random rows
-// of a table of 36M rows (2.3 GB for its 16 columns), far beyond the 50 MB
-// L2, so each touched row costs memory transactions. A first version in
-// which each thread added its own row's columns made every atomic
-// instruction of a warp touch 32 rows, and K4 ran at twice the time of the
-// plain index_add_ (which adds a row's columns from neighbouring threads).
-// Staging the values in shared memory lets a warp add 32 / width rows per
-// instruction, each row's columns from neighbouring lanes.
+// K4 adds the outer products bf16(w[q]) * g[c] of each (point, level) entry
+// into the eight corner rows of the "oct" hash grid: corner q of an entry
+// whose base row is b lies at (b - off + shift[q]) mod size + off, with the
+// level's first row off, its size and its corner shifts passed by value.
+// Each thread walks P consecutive points of one level (threads of one warp
+// take neighbouring levels, so the warp's loads of the point-major (N, L)
+// inputs are contiguous) and keeps the current run of one base row in
+// registers: the samples of a ray are consecutive points, and at the coarse
+// levels neighbouring samples share a cell. A new base row first sends the
+// run's nw corners to the table, red.global.add.v2.f32 a corner for C = 2
+// (one v4 for corners q, q + 1 that land in one aligned 16-byte pair of
+// rows). Entries whose base row lies outside their level are dropped.
+// What bounds it: the reductions. The rows of the fine levels are random in
+// a 289 MB table, six times the 50 MB L2, so each reduction's sector is read
+// and written back; the inputs (44 bytes an entry) are read once.
 //
 // In both the order of the additions changes from run to run, so the sums
 // agree with a sequential sum only to rounding (a bound per row of 1e-5 of
@@ -61,10 +68,7 @@
 
 #include <cstdint>
 
-#define NT 256
-#define MAX_NW 8
-#define MAX_C 8
-#define MAX_WIDTH 32  // columns of the output table a launch may have
+#define MAX_WIDTH 32  // K3: columns of the output table a launch may have
 
 // ------------------------------------------------------------------- K3
 
@@ -173,64 +177,131 @@ seg_add_planes_kernel(const int* __restrict__ idx, const float* __restrict__ upd
 
 // ------------------------------------------------------------------- K4
 
-// Each thread stages its row index and its `width` values in shared memory;
-// then its warp issues the atomics cooperatively, lane k of a pass adding
-// element k of the warp's (32, width) block, so that neighbouring lanes add
-// into neighbouring columns of one row. One thread adding all the columns
-// of its own row would make every atomic instruction of a warp touch 32
-// rows (32 memory transactions); here it touches 32 / width rows. Rows of
-// the staging block are padded to width + 1 words against bank conflicts.
-// rows[r] < 0 marks a dropped entry.
-__device__ __forceinline__ void warp_add_rows(const float* vals, const int* rows, int width,
-                                             float* __restrict__ out) {
-    __syncwarp();
-    const int lane = threadIdx.x & 31;
-    for (int k = lane; k < 32 * width; k += 32) {
-        const int r = k / width, col = k - r * width;
-        const int row = rows[r];
-        if (row >= 0) atomicAdd(out + (long long)row * width + col, vals[r * (width + 1) + col]);
+#define K4_NT 256
+#define K4_MAX_L 32  // levels
+#define MAX_NW 8     // weights (corners) an entry
+#define MAX_C 8      // channels a row
+
+// A launch's arguments, passed by value in the kernel's parameter space.
+struct K4Args {
+    const int* idx;           // (N, L) base rows
+    const float* w[MAX_NW];   // nw weight planes, each (N, L)
+    const float* g;           // (N, L, C) cotangents
+    float* out;               // (T, C), zeroed by the caller
+    long long N;
+    int L, nw, P;             // P: consecutive points a thread walks
+    int off[K4_MAX_L], size[K4_MAX_L];
+    int shift[K4_MAX_L][MAX_NW];  // each in [0, size)
+};
+
+// C channels of one row with one reduction per 4 (or 2) aligned channels.
+template <int C>
+__device__ __forceinline__ void red_row(float* p, const float (&v)[C]) {
+    if constexpr (C % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < C; c += 4) red_v4(p + c, v[c], v[c + 1], v[c + 2], v[c + 3]);
+    } else if constexpr (C % 2 == 0) {
+#pragma unroll
+        for (int c = 0; c < C; c += 2) red_v2(p + c, v[c], v[c + 1]);
+    } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) atomicAdd(p + c, v[c]);  // result unused: a reduction
     }
 }
 
-// Staging of one warp: 32 rows of (width + 1) floats, then 32 row indices.
-__device__ __forceinline__ float* warp_stage(int width) {
-    extern __shared__ float smem[];
-    return smem + (threadIdx.x >> 5) * (32 * (width + 1) + 32);
+// Two neighbouring rows of C = 2 channels, 16-byte aligned, in one reduction.
+template <int C>
+__device__ __forceinline__ void red_pair(float* p, const float (&u)[C], const float (&v)[C]) {
+    if constexpr (C == 2) red_v4(p, u[0], u[1], v[0], v[1]);
 }
 
-__global__ void factored_seg_add_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                                        const float* __restrict__ g, float* __restrict__ out,
-                                        long long LN, int nw, int C, int T) {
-    const int width = nw * C;
-    float* vals = warp_stage(width);
-    int* rows = reinterpret_cast<int*>(vals + 32 * (width + 1));
-    const int lane = threadIdx.x & 31;
-    const long long e = (long long)blockIdx.x * NT + threadIdx.x;
-    int j = -1;
-    if (e < LN) {
-        j = idx[e];
-        if (j < 0 || j >= T) j = -1;
+// One entry: its base row, its nw weights and its C cotangents.
+template <int C>
+struct K4Entry {
+    int b;
+    float w[MAX_NW];
+    float g[C];
+};
+
+template <int C>
+__device__ __forceinline__ void k4_load(K4Entry<C>& x, const K4Args& a, long long e) {
+    x.b = __ldcs(a.idx + e);
+#pragma unroll
+    for (int q = 0; q < MAX_NW; ++q) x.w[q] = q < a.nw ? __ldcs(a.w[q] + e) : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) x.g[c] = __ldcs(a.g + e * C + c);
+}
+
+// The run's corners into the table: corner q of base row `run` (inside the
+// level [off, off + size)) at (run - off + sh[q]) mod size + off.
+template <int C>
+__device__ __forceinline__ void k4_flush(float* __restrict__ out, int run, int off, int size,
+                                         const int (&sh)[MAX_NW], int nw,
+                                         const float (&acc)[MAX_NW][C]) {
+    int rows[MAX_NW];
+#pragma unroll
+    for (int q = 0; q < MAX_NW; ++q) {
+        int r = run - off + sh[q];  // < 2 size: the launch takes sizes up to 2^30
+        if (r >= size) r -= size;
+        rows[q] = r + off;
     }
-    rows[lane] = j;
-    if (j >= 0) {
-        float gc[MAX_C];
 #pragma unroll
-        for (int c = 0; c < MAX_C; ++c) gc[c] = c < C ? g[(long long)c * LN + e] : 0.f;
-        float* mine = vals + lane * (width + 1);
-#pragma unroll
-        for (int q = 0; q < MAX_NW; ++q) {
-            if (q >= nw) break;
-            const float wq = __bfloat162float(__float2bfloat16_rn(w[(long long)q * LN + e]));
-#pragma unroll
-            for (int c = 0; c < MAX_C; ++c)
-                if (c < C) mine[q * C + c] = __fmul_rn(wq, gc[c]);
+    for (int q = 0; q < MAX_NW; q += 2) {
+        if (q >= nw) break;
+        if (q + 1 >= nw) {
+            red_row<C>(out + (long long)rows[q] * C, acc[q]);
+        } else if (C == 2 && rows[q + 1] == rows[q] + 1 && (rows[q] & 1) == 0) {
+            red_pair<C>(out + (long long)rows[q] * C, acc[q], acc[q + 1]);
+        } else {
+            red_row<C>(out + (long long)rows[q] * C, acc[q]);
+            red_row<C>(out + (long long)rows[q + 1] * C, acc[q + 1]);
         }
     }
-    warp_add_rows(vals, rows, width, out);
 }
 
-static unsigned int n_blocks(long long n) { return (unsigned int)((n + NT - 1) / NT); }
-static size_t stage_bytes(int width) { return (size_t)(NT / 32) * (32 * (width + 1) + 32) * 4; }
+// Thread t takes level t mod L and points [P (t / L), P (t / L) + P): entry
+// e = n L + level of the point-major inputs. Each entry's products are
+// __fmul_rn(bf16_rne(w[q]), g[c]) in f32, as the plain version forms them;
+// a run sums them in f32 registers before its reductions.
+template <int C>
+__global__ void __launch_bounds__(K4_NT) factored_seg_add_kernel(const __grid_constant__ K4Args a) {
+    const long long t = (long long)blockIdx.x * K4_NT + threadIdx.x;
+    const long long chunk = t / a.L;
+    const int lv = (int)(t - chunk * a.L);
+    const long long n0 = chunk * a.P;
+    if (n0 >= a.N) return;
+    const long long n1 = min(n0 + a.P, a.N);
+    const int off = a.off[lv], size = a.size[lv];
+    int sh[MAX_NW];
+#pragma unroll
+    for (int q = 0; q < MAX_NW; ++q) sh[q] = q < a.nw ? a.shift[lv][q] : 0;
+    int run = -1;
+    float acc[MAX_NW][C] = {};
+    K4Entry<C> cur, nxt;
+    k4_load<C>(cur, a, n0 * a.L + lv);
+    for (long long n = n0; n < n1; ++n) {
+        if (n + 1 < n1) k4_load<C>(nxt, a, (n + 1) * a.L + lv);  // the next point's, in flight
+        const int b = cur.b;
+        if (b >= off && b - off < size) {
+            const bool same = b == run;
+            if (!same) {
+                if (run >= 0) k4_flush<C>(a.out, run, off, size, sh, a.nw, acc);
+                run = b;
+            }
+#pragma unroll
+            for (int q = 0; q < MAX_NW; ++q) {
+                const float wq = __bfloat162float(__float2bfloat16_rn(cur.w[q]));
+#pragma unroll
+                for (int c = 0; c < C; ++c) {
+                    const float p = __fmul_rn(wq, cur.g[c]);
+                    acc[q][c] = same ? acc[q][c] + p : p;
+                }
+            }
+        }
+        cur = nxt;
+    }
+    if (run >= 0) k4_flush<C>(a.out, run, off, size, sh, a.nw, acc);
+}
 
 template <int W>
 static cudaError_t k3_launch(const void* idx, const void* upd, void* out, long long M, int C, int T,
@@ -266,16 +337,45 @@ extern "C" int fp_segment_add_planes_launch(const void* idx, const void* upd, vo
     return (int)err;
 }
 
-// idx (L*N,) int32, w (nw, L*N) f32, g (C, L*N) f32, out (T, nw*C) f32
-// zeroed by the caller.
-extern "C" int fp_factored_segment_add_launch(const void* idx, const void* w, const void* g,
-                                              void* out, long long LN, int nw, int C, int T,
-                                              void* stream) {
-    if (LN <= 0) return 0;
-    if (nw < 1 || nw > MAX_NW || C < 1 || C > MAX_C || nw * C > MAX_WIDTH ||
-        (LN + NT - 1) / NT > 0x7fffffffLL)
+// idx (N, L) int32 base rows, w nw pointers to (N, L) f32 planes, g (N, L, C)
+// f32, out (T, C) f32 zeroed by the caller; levels (L, 2 + nw) int32 rows of
+// (first row, size, nw corner shifts in [0, size)); P consecutive points a
+// thread.
+extern "C" int fp_factored_segment_add_launch(const void* idx, const void* const* w, const void* g,
+                                              void* out, long long N, int L, int nw, int C,
+                                              const int* levels, int P, void* stream) {
+    if (N <= 0) return 0;
+    if (L < 1 || L > K4_MAX_L || nw < 1 || nw > MAX_NW || C < 1 || C > MAX_C || P < 1)
         return (int)cudaErrorInvalidValue;
-    factored_seg_add_kernel<<<n_blocks(LN), NT, stage_bytes(nw * C), (cudaStream_t)stream>>>(
-        (const int*)idx, (const float*)w, (const float*)g, (float*)out, LN, nw, C, T);
+    const long long threads = (N + P - 1) / P * L, blocks = (threads + K4_NT - 1) / K4_NT;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    K4Args a = {};
+    a.idx = (const int*)idx;
+    for (int q = 0; q < nw; ++q) a.w[q] = (const float*)w[q];
+    a.g = (const float*)g;
+    a.out = (float*)out;
+    a.N = N, a.L = L, a.nw = nw, a.P = P;
+    for (int l = 0; l < L; ++l) {
+        const int* row = levels + l * (2 + nw);
+        a.off[l] = row[0], a.size[l] = row[1];
+        if (row[0] < 0 || row[1] < 1 || row[1] > (1 << 30) || (long long)row[0] + row[1] > 0x7fffffffLL)
+            return (int)cudaErrorInvalidValue;
+        for (int q = 0; q < nw; ++q) {
+            if (row[2 + q] < 0 || row[2 + q] >= row[1]) return (int)cudaErrorInvalidValue;
+            a.shift[l][q] = row[2 + q];
+        }
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    const unsigned int nb = (unsigned int)blocks;
+    switch (C) {
+        case 1: factored_seg_add_kernel<1><<<nb, K4_NT, 0, st>>>(a); break;
+        case 2: factored_seg_add_kernel<2><<<nb, K4_NT, 0, st>>>(a); break;
+        case 3: factored_seg_add_kernel<3><<<nb, K4_NT, 0, st>>>(a); break;
+        case 4: factored_seg_add_kernel<4><<<nb, K4_NT, 0, st>>>(a); break;
+        case 5: factored_seg_add_kernel<5><<<nb, K4_NT, 0, st>>>(a); break;
+        case 6: factored_seg_add_kernel<6><<<nb, K4_NT, 0, st>>>(a); break;
+        case 7: factored_seg_add_kernel<7><<<nb, K4_NT, 0, st>>>(a); break;
+        default: factored_seg_add_kernel<8><<<nb, K4_NT, 0, st>>>(a); break;
+    }
     return (int)cudaGetLastError();
 }

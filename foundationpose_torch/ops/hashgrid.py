@@ -11,9 +11,11 @@ Port of foundationpose_tpu/ops/hashgrid.py with its three layouts:
   table is read bf16-rounded. The JAX package gathers from a rolled
   (T, 8C) copy of the table; row i of that copy is
   t[(i - off + shift_q) mod size + off], so the port gathers the eight
-  corners straight from a bf16 copy of the table. The backward's
-  gradient of the rolled rows is K4 (`factored_segment_add`), folded
-  back per level with `torch.roll` by the same shifts;
+  corners straight from a bf16 copy of the table. The backward's table
+  gradient is K4 (`factored_segment_add`), which adds each corner's
+  product into that same row of the (T, C) gradient (on the CPU its
+  plain version folds the JAX package's (T, 8C) rolled-row sums back
+  per level with `torch.roll` by the same shifts);
 * "quad": the same index, one 4-corner row (the (x, y) corners, shifts
   0, 1, s, s+1) per (point, level, z corner), gathered from the bf16
   table; the table gradient is K3 on the 4C planes of those rows, folded
@@ -120,6 +122,17 @@ def oct_shifts(cfg: HashGridCfg) -> np.ndarray:
         size = int(sizes_np[lv])
         out.append([(dz * h + dy * s + dx) % size for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)])
     return np.array(out, np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def oct_levels(cfg: HashGridCfg):
+    """K4's level constants: per level its first row and size, and the
+    (L, 8) corner shifts (read-only numpy arrays)."""
+    _res, sizes, offsets, _total = cfg.level_tables()
+    out = (offsets, sizes, oct_shifts(cfg))
+    for a in out:
+        a.setflags(write=False)
+    return out
 
 
 def quad_shifts(cfg: HashGridCfg) -> np.ndarray:
@@ -283,29 +296,16 @@ def _oct_forward(embeddings, x, cfg):
 
 
 def _oct_table_grad(cfg, table_size, x, g):
-    """The table's gradient: K4 over the base rows, folded back per level
-    by the corner shifts."""
+    """The table's gradient: K4 adds each (point, level) entry's products
+    into its eight corner rows, the base row shifted by the corner shifts."""
     N, L, C = x.shape[0], cfg.n_levels, cfg.level_dim
     c = _consts(cfg, str(x.device))
     flat, fx, fy, fz, oob = _oct_corner_data(x, cfg)
     g_lc = torch.where(oob[:, None], 0.0, g).reshape(N, L, C)
-    w8 = _oct_weights(fx, fy, fz)
     # oob points keep an index inside their level (their updates are
     # zero), as the JAX package does for its per-level sort.
-    idx_lv = torch.where(oob[:, None], c["offsets"][None], flat).T.to(torch.int32)
-    w_planes = torch.stack([wq.T for wq in w8])  # (8, L, N)
-    g_planes = g_lc.permute(2, 1, 0)  # (C, L, N)
-    dq = factored_segment_add(idx_lv, w_planes, g_planes, table_size)  # K4, (T, 8C)
-    _res, sizes_np, offsets_np, _ = cfg.level_tables()
-    shifts = oct_shifts(cfg)
-    segs = []
-    for lv in range(L):
-        dql = dq[int(offsets_np[lv]) : int(offsets_np[lv] + sizes_np[lv])]
-        acc = dql[:, 0:C]
-        for q in range(1, 8):
-            acc = acc + torch.roll(dql[:, q * C : (q + 1) * C], int(shifts[lv, q]), dims=0)
-        segs.append(acc)
-    return torch.cat(segs)
+    idx = torch.where(oob[:, None], c["offsets"][None], flat).to(torch.int32)  # (N, L)
+    return factored_segment_add(idx, _oct_weights(fx, fy, fz), g_lc, oct_levels(cfg))  # K4, (T, C)
 
 
 def _oct_point_grad(cfg, x, vals, g):

@@ -5,19 +5,24 @@ K3 replaces the Pallas TPU kernel foundationpose_tpu/ops/pallas_scatter.py
 ::_seg_add_factored_kernel (reached from factored_segment_add). Neither
 sorts. K3 merges in registers the runs of one row that consecutive points
 send (the same row recurs every 128 updates of the hash-grid backward's
-stream) and adds each run with one vector reduction; K4's warps add their
-rows' columns from neighbouring lanes (see the header of
-csrc/segment_add.cu). Reached through ops/segment_add.py for
-CUDA tensors. The two kernels share one source and one library, and each
+stream) and adds each run with one vector reduction. K4 writes the "oct"
+hash grid's folded (T, C) table gradient itself: each (point, level)
+entry's products go into its eight corner rows, the base row shifted
+within the level by the level's corner shifts (passed by value), with
+runs of one base row merged in registers the same way (see the header
+of csrc/segment_add.cu). Reached through ops/segment_add.py for CUDA
+tensors. The two kernels share one source and one library, and each
 wrapper counts its own launches.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .cuda_build import KernelLibrary, check_status
+from .segment_add import check_levels
 
 K3 = KernelLibrary("segment_add.cu")
 K4 = KernelLibrary("segment_add.cu")
@@ -25,6 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 K3_SPAN = 1024  # updates a warp walks: the span within which K3 merges runs of a row
+K4_RUN = 8  # points of one level a thread walks: the span within which K4 merges runs of a base row
 
 
 def _k3_geometry(C: int) -> tuple[int, int]:
@@ -42,7 +48,7 @@ def _declare(lib):
     lib.fp_segment_add_planes_launch.restype = ctypes.c_int
     lib.fp_segment_add_planes_launch.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _P]
     lib.fp_factored_segment_add_launch.restype = ctypes.c_int
-    lib.fp_factored_segment_add_launch.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P]
+    lib.fp_factored_segment_add_launch.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P, _I, _P]
 
 
 def _check(name, t, dev):
@@ -89,37 +95,40 @@ def segment_add_planes_cuda(idx: torch.Tensor, upd_planes: torch.Tensor, table_s
     return out
 
 
-def factored_segment_add_cuda(
-    idx_lv: torch.Tensor, w_planes: torch.Tensor, g_planes: torch.Tensor, table_size: int
-) -> torch.Tensor:
-    """K4: idx_lv (L, N), w_planes (nw, L, N) f32, g_planes (C, L, N) f32
-    on a CUDA device -> (table_size, nw*C) f32."""
-    dev = g_planes.device
+def factored_segment_add_cuda(idx: torch.Tensor, w_planes, g: torch.Tensor, levels) -> torch.Tensor:
+    """K4: idx (N, L) base rows, w_planes nw (N, L) f32 planes, g (N, L, C)
+    f32 on a CUDA device, levels (offsets, sizes, shifts (L, nw)) -> the
+    (T, C) f32 sums of bf16(w[q]) * g[c] in the shifted rows of corner q."""
+    dev = g.device
     if dev.type != "cuda":
         raise ValueError(f"K4: tensors must be on a CUDA device, got {dev}")
-    _check("idx_lv", idx_lv, dev)
-    _check("w_planes", w_planes, dev)
-    if w_planes.dtype != torch.float32 or g_planes.dtype != torch.float32:
-        raise ValueError("K4: w_planes and g_planes must be float32")
-    if idx_lv.ndim != 2 or w_planes.ndim != 3 or g_planes.ndim != 3:
-        raise ValueError("K4: expected idx_lv (L, N), w_planes (nw, L, N), g_planes (C, L, N)")
-    nw, C = w_planes.shape[0], g_planes.shape[0]
-    if w_planes.shape[1:] != idx_lv.shape or g_planes.shape[1:] != idx_lv.shape:
-        raise ValueError("K4: w_planes and g_planes must match idx_lv's (L, N)")
-    if not (1 <= nw <= 8 and 1 <= C <= 8 and nw * C <= 32):
-        raise ValueError(f"K4: nw = {nw} and C = {C} must lie in 1..8 with nw * C <= 32")
-    idx = _indices(idx_lv, table_size)
-    w = w_planes.contiguous()
-    g = g_planes.contiguous()
-    out = torch.zeros((table_size, nw * C), dtype=torch.float32, device=dev)
-    LN = idx.numel()
-    if LN == 0 or table_size == 0:
+    _check("idx", idx, dev)
+    if idx.ndim != 2 or g.ndim != 3 or g.shape[:2] != idx.shape:
+        raise ValueError("K4: expected idx (N, L) and g (N, L, C)")
+    N, L, C = g.shape
+    nw = len(w_planes)
+    for wq in w_planes:
+        _check("w_planes", wq, dev)
+        if wq.dtype != torch.float32 or wq.shape != idx.shape:
+            raise ValueError("K4: each weight plane must be float32 of idx's (N, L)")
+    if g.dtype != torch.float32:
+        raise ValueError("K4: g must be float32")
+    if not (1 <= nw <= 8 and 1 <= C <= 8 and L <= 32):
+        raise ValueError(f"K4: nw = {nw} and C = {C} must lie in 1..8, L = {L} at most 32")
+    offsets, sizes, shifts, T = check_levels(levels, L, nw)
+    idx = _indices(idx, T)
+    w = [wq.contiguous() for wq in w_planes]
+    g = g.contiguous()
+    out = torch.zeros((T, C), dtype=torch.float32, device=dev)
+    if N == 0:
         return out
+    consts = np.ascontiguousarray(np.concatenate([offsets[:, None], sizes[:, None], shifts], axis=1), np.int32)
+    ptrs = (ctypes.c_void_p * nw)(*[wq.data_ptr() for wq in w])
     lib = K4.lib(_declare)
     K4.launches += 1
     status = lib.fp_factored_segment_add_launch(
-        idx.data_ptr(), w.data_ptr(), g.data_ptr(), out.data_ptr(), LN, nw, C, table_size,
-        torch.cuda.current_stream(dev).cuda_stream,
+        idx.data_ptr(), ptrs, g.data_ptr(), out.data_ptr(), N, L, nw, C,
+        consts.ctypes.data, K4_RUN, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_status("fp_factored_segment_add_launch", status)
     return out

@@ -306,26 +306,79 @@ def test_k3_other_widths_match_plain(card, C, M):
 
 
 def test_k4_matches_plain(card):
+    """The folded K4 against its plain version (the (T, 8C) base-row sums
+    rolled back per level) on the "oct" levels of a small grid: dense and
+    hashed levels, shifts that wrap past a level's end, runs of one base
+    row, 1% out-of-bounds entries (level start, zero cotangent) and
+    indices outside [0, T) or outside their level, which both drop."""
+    from foundationpose_torch.ops.hashgrid import HashGridCfg, oct_levels
     from foundationpose_torch.ops.segment_add import factored_segment_add_plain
 
     g = torch.Generator(device=card).manual_seed(1)
-    L, N, NW, C = 4, 1 << 17, 8, 2
-    sizes = torch.tensor([3000, 20_000, 50_000, 50_000], device=card)
-    offs = torch.cumsum(sizes, 0) - sizes
-    T = int(sizes.sum())
-    idx = (offs[:, None] + (torch.rand((L, N), generator=g, device=card) * sizes[:, None]).long()).int()
-    w = torch.rand((NW, L, N), generator=g, device=card)
-    gp = torch.randn((C, L, N), generator=g, device=card)
-    zero = torch.rand((L, N), generator=g, device=card) < 0.01  # oob entries: level start, zero g
-    idx = torch.where(zero, offs[:, None].int(), idx)
-    gp = torch.where(zero, 0.0, gp)
+    cfg = HashGridCfg(n_levels=6, base_resolution=16, desired_resolution=256, log2_hashmap_size=16, layout="oct")
+    levels = oct_levels(cfg)
+    offs, sizes = (torch.as_tensor(a, device=card) for a in levels[:2])
+    res = cfg.level_tables()[0]
+    assert ((res + 1) ** 3 <= levels[1]).any() and ((res + 1) ** 3 > levels[1]).any()
+    L, N, C = len(sizes), 1 << 17, 2
+    T = int(offs[-1] + sizes[-1])
+    base = (torch.rand((N, L), generator=g, device=card) * sizes).long()
+    base[: N // 2] = base[: N // 2 : 8].repeat_interleave(8, dim=0)  # runs of 8 points on one row
+    base[-N // 8 :] = sizes - 1 - base[-N // 8 :] % 64  # near each level's end: corners wrap
+    idx = offs + base
+    w = [torch.rand((N, L), generator=g, device=card) for _ in range(8)]
+    gp = torch.randn((N, L, C), generator=g, device=card)
+    zero = torch.rand((N, L), generator=g, device=card) < 0.01  # oob entries: level start, zero g
+    idx = torch.where(zero, offs, idx)
+    gp = torch.where(zero[..., None], 0.0, gp)
+    idx[:50, 0] = -3
+    idx[50:100, L - 1] = T + 5
+    idx[100:150, 1] = offs[2]  # inside [0, T), outside its level
+    idx = idx.int()
     before = segment_add_cuda.K4.launches
-    out = segment_add_cuda.factored_segment_add_cuda(idx, w, gp, T)
+    out = segment_add_cuda.factored_segment_add_cuda(idx, w, gp, levels)
     torch.cuda.synchronize()
     assert segment_add_cuda.K4.launches == before + 1
-    want = factored_segment_add_plain(idx, w, gp, T)
-    bound = _row_bound(factored_segment_add_plain(idx, w, gp.abs(), T))
-    assert ((out - want).abs() <= bound).all()
+    assert out.shape == (T, C)
+    want = factored_segment_add_plain(idx, w, gp, levels)
+    bound = _row_bound(factored_segment_add_plain(idx, w, gp.abs(), levels))
+    assert ((out - want).abs() <= bound).all() and want.abs().sum() > 0
+
+
+def test_oct_table_grad_folds_in_k4(card):
+    """The "oct" encoder's table gradient on the card against the same
+    backward on the CPU (plain K4 and its roll fold), per-row bound; on the
+    card the backward allocates less than one (T, 8C) f32 block at its
+    peak and launches K4 once."""
+    from foundationpose_torch.ops.hashgrid import HashGridCfg, hashgrid_encode
+
+    cfg = HashGridCfg(n_levels=8, base_resolution=16, desired_resolution=512, log2_hashmap_size=19, layout="oct")
+    T, C = cfg.level_tables()[3], cfg.level_dim
+    gen = torch.Generator().manual_seed(6)
+    o = torch.nn.functional.normalize(torch.randn((128, 3), generator=gen), dim=1) * 1.4
+    d = torch.nn.functional.normalize(torch.rand((128, 3), generator=gen) * 0.6 - 0.3 - o, dim=1)
+    t = torch.linspace(0.2, 2.6, 256) + torch.rand((128, 256), generator=gen) * 0.01
+    x = (o[:, None] + d[:, None] * t[..., None]).reshape(-1, 3)  # rays of samples, some out of bounds
+    emb = torch.rand((T, C), generator=gen) - 0.5
+    cot = torch.randn((len(x), cfg.out_dim), generator=gen)
+
+    def cpu_grad(c):
+        e = emb.clone().requires_grad_()
+        hashgrid_encode(e, x, cfg).backward(c)
+        return e.grad
+
+    want, bound = cpu_grad(cot), _row_bound(cpu_grad(cot.abs()))  # weights are >= 0
+    e = emb.to(card).requires_grad_()
+    out = hashgrid_encode(e, x.to(card), cfg)
+    cot_card = cot.to(card)
+    torch.cuda.synchronize()
+    before, held = segment_add_cuda.K4.launches, torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out.backward(cot_card)
+    torch.cuda.synchronize()
+    assert segment_add_cuda.K4.launches == before + 1
+    assert torch.cuda.max_memory_allocated(card) - held < T * 8 * C * 4
+    assert ((e.grad.cpu() - want).abs() <= bound).all() and want.abs().sum() > 0
 
 
 def test_hashgrid_backward_launches_k3_k4(card):

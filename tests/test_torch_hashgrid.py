@@ -45,9 +45,12 @@ def _flat_case(kind, seed=3):
 
 def _leveled_case(seed=5, oob_zero=False):
     """Per-level indices (L, N) inside their level's segment, weights
-    (8, L, N), cotangents (C, L, N); with oob_zero 1% of the entries
-    carry zero cotangents at their level's first row, as the hash-grid
-    backward sends out-of-bounds points."""
+    (8, L, N), cotangents (C, L, N) in the JAX kernel's layout, and the
+    levels (offsets, sizes, corner shifts (L, 8): 0 for corner 0, the
+    others anywhere in the level, so that most corners wrap past the
+    level's end for some rows); with oob_zero 1% of the entries carry zero
+    cotangents at their level's first row, as the hash-grid backward sends
+    out-of-bounds points."""
     rng = np.random.default_rng(seed)
     L, N, NW, C = 3, 700, 8, 2
     starts, sizes, TBL = np.array([0, 400, 1000]), np.array([400, 600, 800]), 1800
@@ -59,7 +62,27 @@ def _leveled_case(seed=5, oob_zero=False):
         sel = rng.uniform(size=(L, N)) < 0.01
         idx[sel] = np.broadcast_to(starts[:, None], (L, N))[sel]
         g[:, sel] = 0.0
-    return idx, w, g, TBL
+    shifts = np.concatenate([np.zeros((L, 1), np.int64), rng.integers(0, sizes[:, None], (L, 7))], axis=1)
+    return idx, w, g, (starts, sizes, shifts), TBL
+
+
+def _port_k4(idx, w, g):
+    """The JAX kernel's (L, N) layout -> K4's point-major one: idx (N, L),
+    eight (N, L) weight planes, g (N, L, C)."""
+    return (torch.as_tensor(idx.T.copy()), [torch.as_tensor(wq.T.copy()) for wq in w],
+            torch.as_tensor(g.transpose(2, 1, 0).copy()))
+
+
+def _fold(dq, levels, C=2):
+    """A (T, 8C) block of base-row sums -> (T, C): column block q of each
+    level rolled down its level by the level's shift q (np.roll), the
+    blocks added."""
+    offsets, sizes, shifts = levels
+    out = np.zeros((dq.shape[0], C), np.float32)
+    for lv, (o, n) in enumerate(zip(offsets, sizes)):
+        for q in range(shifts.shape[1]):
+            out[o : o + n] += np.roll(dq[o : o + n, q * C : (q + 1) * C], shifts[lv, q], axis=0)
+    return out
 
 
 @pytest.mark.parametrize("kind", ["duplicates", "sentinel"])
@@ -228,24 +251,59 @@ def test_k3_drops_out_of_range_indices():
 
 @pytest.mark.parametrize("oob_zero", [False, True])
 def test_k4_plain_vs_pallas_interpret_and_fallback(oob_zero):
-    idx, w, g, TBL = _leveled_case(oob_zero=oob_zero)
-    got = factored_segment_add(torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g), TBL).numpy()
+    """K4's folded (T, C) sums against the JAX kernel's and fallback's
+    (T, 8C) base-row sums folded by the same shifts."""
+    idx, w, g, levels, TBL = _leveled_case(oob_zero=oob_zero)
+    got = factored_segment_add(*_port_k4(idx, w, g), levels).numpy()
     args = (jnp.asarray(idx), jnp.asarray(w), jnp.asarray(g), TBL)
-    pallas = np.asarray(jps._segment_add_factored(*args, block=256, interpret=True))
-    fallback = np.asarray(jps.factored_segment_add(*args))
-    assert got.shape == (TBL, 16)
+    pallas = _fold(np.asarray(jps._segment_add_factored(*args, block=256, interpret=True)), levels)
+    fallback = _fold(np.asarray(jps.factored_segment_add(*args)), levels)
+    assert got.shape == (TBL, 2)
     np.testing.assert_allclose(got, pallas, rtol=3e-4, atol=5e-4)
     np.testing.assert_allclose(got, fallback, rtol=1e-5, atol=1e-5)
 
 
 def test_k4_rounds_weights_to_bf16():
-    """Row q*C + c of an update is bf16_rne(w[q]) * g[c] in f32."""
+    """Corner q of an update adds bf16_rne(w[q]) * g[c] in f32 into its
+    shifted row: here base row 0 with shifts 1..8 puts corner q in row q + 1."""
     w = torch.full((8, 1, 1), 1.0 + 2.0**-9)  # a tie: rounds to even (1.0)
     w[1] = 1.0 + 3 * 2.0**-9  # rounds up to 1 + 2^-7
-    g = torch.tensor([[[3.0]], [[-1.0]]])
-    got = factored_segment_add_plain(torch.zeros(1, 1, dtype=torch.int32), w, g, 2)
-    assert got[0, 0] == 3.0 and got[0, 1] == -1.0
-    assert got[0, 2] == 3.0 * (1.0 + 2.0**-7) and got[1].abs().sum() == 0
+    g = torch.tensor([[[3.0, -1.0]]])
+    levels = ([0], [9], [list(range(1, 9))])
+    got = factored_segment_add_plain(torch.zeros(1, 1, dtype=torch.int32), list(w), g, levels)
+    assert got[1].tolist() == [3.0, -1.0]
+    assert got[2].tolist() == [3.0 * (1.0 + 2.0**-7), -(1.0 + 2.0**-7)]
+    assert got[0].abs().sum() == 0 and got.shape == (9, 2)
+
+
+@pytest.mark.parametrize("n_levels,log2", [(4, 10), (5, 11), (6, 12)])
+def test_k4_fold_lands_in_the_gathered_rows(n_levels, log2):
+    """The plain folded K4 adds corner q's product into the row the "oct"
+    forward gathers corner q from (`_oct_rows`), wrap past a level's end
+    included: against an independent np.add.at into those rows."""
+    jcfg, tcfg = _cfgs("oct", n_levels, log2)
+    _emb, x, g = _inputs(jcfg)
+    T, L = tcfg.level_tables()[3], tcfg.n_levels
+    flat, fx, fy, fz, _oob = thg._oct_corner_data(torch.as_tensor(x), tcfg)
+    rows = thg._oct_rows(flat, tcfg).numpy()  # (N, L, 8)
+    assert (rows < flat.numpy()[..., None]).any(), "some corners must wrap"
+    w8 = thg._oct_weights(fx, fy, fz)
+    w16 = torch.stack(w8, dim=-1).to(torch.bfloat16).to(torch.float32).numpy()  # (N, L, 8)
+    gl = g.reshape(len(x), L, 2)
+    want = np.zeros((T, 2), np.float32)
+    np.add.at(want, rows.reshape(-1), (w16[..., None] * gl[:, :, None, :]).reshape(-1, 2))
+    got = factored_segment_add_plain(flat.to(torch.int32), w8, torch.as_tensor(gl), thg.oct_levels(tcfg))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_k4_levels_are_checked():
+    idx, w, g = torch.zeros(1, 2, dtype=torch.int32), [torch.ones(1, 2)] * 8, torch.ones(1, 2, 2)
+    ok = ([0, 5], [5, 7], np.zeros((2, 8), np.int64))
+    assert factored_segment_add(idx, w, g, ok).shape == (12, 2)
+    for bad in (([0, 4], [5, 7], ok[2]), ([1, 6], [5, 7], ok[2]), ([0, 5], [5, 7], ok[2] + 5),
+                ([0, 5], [5, 7], ok[2][:, :4])):
+        with pytest.raises(ValueError, match="K4"):
+            factored_segment_add(idx, w, g, bad)
 
 
 def test_segment_add_other_device_raises():
@@ -253,8 +311,9 @@ def test_segment_add_other_device_raises():
         segment_add_planes(torch.zeros(3, dtype=torch.int32, device="meta"),
                            torch.zeros(2, 3, device="meta"), 4)
     with pytest.raises(RuntimeError, match="no kernel"):
-        factored_segment_add(torch.zeros(1, 3, dtype=torch.int32, device="meta"),
-                             torch.zeros(8, 1, 3, device="meta"), torch.zeros(2, 1, 3, device="meta"), 4)
+        factored_segment_add(torch.zeros(3, 1, dtype=torch.int32, device="meta"),
+                             [torch.zeros(3, 1, device="meta")] * 8, torch.zeros(3, 1, 2, device="meta"),
+                             ([0], [4], [[0] * 8]))
 
 
 # ------------------------------------------------------------------ encoder
