@@ -161,15 +161,7 @@ their records stay comparable; phase 9 runs the defaults.
    frame at the scene's gt: the scorer's loss drops by more than 0.15
    and the network-scored ADD-S is below 6 cm; the same recipe on the
    card generator's draws from the same seeds is reported, not gated;
-16. parallel, quad layout, tooling: (a) FoundationPose over a mesh of 2
-   shards of the one card (parallel.make_device_mesh(devices=[cuda:0] * 2))
-   against the unsharded estimator at the main path's workload in f32, the
-   network scorer spread by `spread_scorer` on the register's crops: the
-   same order and poses within 1e-4, full, funneled (fast_register) and
-   packed; K1 and K2 counted per sharded register; each sharded register's
-   captured step bit-equal to its eager body; the full and funneled
-   registers timed in turns with the unsharded ones (two shards of one card
-   measure the split's overhead, not scaling); (b) 2 refiner and 2 scorer
+16. parallel, quad layout, tooling: (b) 2 refiner and 2 scorer
    steps of (b) above, data-parallel over 2 shards of the card against the
    unsharded steps on the card: losses within 1e-5 relative, parameters by
    param_agreement; 2 f32 steps of (c)'s full-width nets at batch 64 the
@@ -1057,14 +1049,16 @@ def _pool_bytes(graphs):
 
 
 def _eager_register(e, frame):
-    """e.register on its eager sharded body, the branch that a mesh of
-    distinct cards takes: the register without its captured step, for
-    comparison."""
-    e._mesh_on_one_device = lambda: False
+    """e.register through an empty cache of steps: a register key's first
+    call runs its body eagerly and captures nothing. The register without
+    its captured step, for comparison; e's own cache is kept."""
+    from foundationpose_torch.pipeline.step_graphs import StepGraphs
+
+    graphs, e._graphs = e._graphs, StepGraphs()
     try:
         return e.register(K_FULL, *frame, iteration=5)
     finally:
-        del e._mesh_on_one_device
+        e._graphs = graphs
 
 
 def _against_eager(name, e, frame):
@@ -3225,33 +3219,25 @@ def training_phase():
 # ------------------------------------------- parallel, quad layout, tooling
 
 
-def _sharded_register_check(counts):
-    """(a) FoundationPose(device_mesh=) over 2 shards of the card against the
-    unsharded estimator at the main path's workload in f32 (the network
-    scorer spread on the register's crops, so that its order is not
-    rounding noise): the same order and poses within 1e-4, full and
-    funneled (fast_register), unpacked and packed; K1 and K2 counted per
-    register; times in turns."""
-    import dataclasses
-
+def _f32_network_estimator():
+    """The f32 estimator at the main path's workload that (f) traces: the
+    network scorer spread on the crops of a first register, so that its
+    order is not rounding noise."""
     import torch
 
     from foundationpose_torch.geometry.projection import depth_to_xyz_map
-    from foundationpose_torch.ops import attention_cuda, epilogue_cuda, raster_cuda
-    from foundationpose_torch.parallel import make_device_mesh
-    from foundationpose_torch.pipeline import EstimatorCfg, FoundationPose, RasterCfg, RefinerCfg, ScorerCfg
+    from foundationpose_torch.pipeline import EstimatorCfg, RasterCfg, RefinerCfg, ScorerCfg
     from foundationpose_torch.pipeline.crops import make_crop_inputs
 
     mesh = _bench_mesh()
     raster = RasterCfg(cull_backfaces=True)
-    base = EstimatorCfg(refiner=RefinerCfg(raster=raster, compute_dtype="float32"),
-                        scorer=ScorerCfg(mode="network", raster=raster, compute_dtype="float32"),
-                        **UNPACKED)
+    cfg = EstimatorCfg(refiner=RefinerCfg(raster=raster, compute_dtype="float32"),
+                       scorer=ScorerCfg(mode="network", raster=raster, compute_dtype="float32"),
+                       **UNPACKED)
     frame = _frame(mesh, (0.02, -0.01, 0.9), (480, 640), K_FULL, "cuda")
-    mesh2 = make_device_mesh(devices=["cuda:0", "cuda:0"])
-    one = _estimator(mesh, base, "cuda")
+    one = _estimator(mesh, cfg, "cuda")
     one.register(K_FULL, *frame, iteration=5)
-    sc = base.scorer
+    sc = cfg.scorer
     Kt, depth_t = (torch.as_tensor(a, device="cuda") for a in (K_FULL, frame[1]))
     rgb_t = torch.as_tensor(frame[0], device="cuda").to(torch.float32) / 255.0
     with torch.no_grad():
@@ -3259,45 +3245,7 @@ def _sharded_register_check(counts):
                                    one._diam, input_res=sc.input_res, crop_ratio=sc.crop_ratio,
                                    normalize_xyz=sc.normalize_xyz, invalid_z=sc.xyz_invalid_z, raster=raster)
         spread_scorer(one.scorer, a, b)
-    del a, b
-    t = {}
-    for name, cfg in (("full", base), ("funneled", base.fast_register()),
-                      ("packed", dataclasses.replace(base, register_pack=True, register_roi=True))):
-        e1 = FoundationPose(mesh=mesh, cfg=cfg, refiner_params=one.refiner, scorer_params=one.scorer,
-                            device="cuda")
-        e2 = FoundationPose(mesh=mesh, cfg=cfg, refiner_params=one.refiner, scorer_params=one.scorer,
-                            device_mesh=mesh2)
-        p1 = e1.register(K_FULL, *frame, iteration=5)
-        torch.cuda.synchronize()
-        raster_cuda.KERNEL.launches = attention_cuda.KERNEL.launches = epilogue_cuda.KERNEL.launches = 0
-        p2 = e2.register(K_FULL, *frame, iteration=5)
-        torch.cuda.synchronize()
-        k1, k2 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
-        counts["raster"] += k1
-        counts["attention"] += k2
-        counts["epilogue"] += epilogue_cuda.KERNEL.launches
-        same = bool(torch.equal(e1.order, e2.order))
-        d_pose = float(np.abs(p1 - p2).max())
-        d_all = float((e1.poses - e2.poses).abs().max())
-        gap = float(e1.scores[0] - e1.scores[1])
-        print(f"  (a) {name} register, 2 shards of one card against 1: {len(e1.order)} hypotheses, order "
-              f"equal {same}, pose max |d| {d_pose:.2e}, all poses {d_all:.2e}, top-2 score gap {gap:.3g}; "
-              f"K1 {k1} K2 {k2} launches a sharded register")
-        if not (same and d_pose < 1e-4 and d_all < 1e-4) or k1 < 12 or k2 < 12:
-            raise AssertionError(f"the {name} sharded register disagrees with the unsharded one")
-        e1.register(K_FULL, *frame, iteration=5)  # the second registers capture their steps
-        e2.register(K_FULL, *frame, iteration=5)
-        (key2, _step2), = _against_eager(f"(a) {name} register, 2 shards of one card, f32", e2, frame)
-        if key2[0][-1] != 2:
-            raise AssertionError(f"the sharded register's step {key2[0]} is not over 2 shards")
-        if name != "packed":
-            tt = _wall_in_turns({f"register_{name}_f32_ms": lambda: e1.register(K_FULL, *frame, iteration=5),
-                                 f"register_{name}_f32_2shards_ms":
-                                     lambda: e2.register(K_FULL, *frame, iteration=5)}, 3)
-            t.update(tt)
-            t[f"register_{name}_2shards_k1_launches"] = k1
-            t[f"register_{name}_2shards_k2_launches"] = k2
-    return t, one
+    return one
 
 
 def _dp_check(counts):
@@ -3572,11 +3520,10 @@ def _tooling_check(tmp_dir):
 
 
 def parallel_quad_tooling_phase():
-    """(a) the hypothesis-sharded register, (b) data-parallel train steps,
-    (c) the "quad" hash-grid layout and K3 on its stream, (d) debug dumps,
-    (e) warp_perspective, (f) a profiling trace. Two shards of one card
-    measure the split's overhead, not scaling. Returns (launch counts,
-    times, K3 results)."""
+    """(b) data-parallel train steps, (c) the "quad" hash-grid layout and K3
+    on its stream, (d) debug dumps, (e) warp_perspective, (f) a profiling
+    trace. Two shards of one card measure the split's overhead, not
+    scaling. Returns (launch counts, times, K3 results)."""
     import os
     import tempfile
 
@@ -3586,8 +3533,8 @@ def parallel_quad_tooling_phase():
 
     counts = {"raster": 0, "attention": 0, "k3": 0, "epilogue": 0}
     seg = {}
-    t, one = _sharded_register_check(counts)
-    t.update(_dp_check(counts))
+    one = _f32_network_estimator()
+    t = _dp_check(counts)
     t.update(_dp_full_width(counts))
     _quad_check(counts, seg)
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")

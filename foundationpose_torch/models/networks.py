@@ -127,8 +127,8 @@ class ScoreNetMultiPair(nn.Module):
 
     def pooled(self, A, B, dtype=torch.bfloat16):
         """The per-pair half: trunk, self-attention, mean-pool -> (L, D).
-        Pairs are independent here; a hypothesis-sharded register runs it
-        on each shard's device."""
+        Pairs are independent here; a data-parallel scorer step runs it on
+        each shard's replica."""
         tokens = _tokens(self.encoderA, self.encoderAB, A, B, self.cfg.embed_dim, dtype)
         return self.att(tokens, dtype).mean(dim=1)
 

@@ -1,19 +1,14 @@
-"""Sharding over several devices for the estimator and the trainers.
+"""Sharding over several devices for the trainers.
 
 Port of foundationpose_tpu/parallel/sharding.py. As there, one host
-process drives the devices of a 1-D mesh (no torch.distributed): the
-models are ~10M-parameter CNNs with 400-token attention, so the two
-scaling axes are
-
-1. hypothesis parallelism for the register: the N pose hypotheses are
-   split over the mesh; each device renders, crops and runs the refiner
-   and the scorer's trunk on its shard, and only the scorer's pooled
-   (N, D) features are gathered onto the first device for its
-   cross-hypothesis attention (`FoundationPose(n_devices=...)`);
-2. data parallelism for training: the batch is split along its first
-   axis, each device runs forward and backward on a replica of the net,
-   and the gradients are summed onto the primary net
-   (`models.training.refine_train_step(..., mesh=...)`).
+process drives the devices of a 1-D mesh (no torch.distributed). The
+port uses it for data parallelism in training: the batch is split along
+its first axis, each device runs forward and backward on a replica of
+the net, and the gradients are summed onto the primary net
+(`models.training.refine_train_step(..., mesh=...)`). The register runs
+on one device: the JAX package's hypothesis sharding has no counterpart
+in the estimator, and `shard_hypotheses`, `pad_to_multiple`,
+`batch_sharding` and `replicated` have no caller in the package.
 
 A `DeviceMesh` is an ordered list of `torch.device`s and an axis name.
 The list may repeat a device: the CPU stands in for n devices that way
@@ -31,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..torch_config import default_device
+from ..torch_config import default_device, indexed_device
 
 HYP_AXIS = "hyp"
 DATA_AXIS = "data"
@@ -51,15 +46,6 @@ class DeviceMesh:
         return self.devices[0]
 
 
-def _mesh_device(device: str | torch.device) -> torch.device:
-    """`device` as the mesh names it: a card with its index ("cuda" is the
-    current card), so that a module already there is not copied."""
-    dev = default_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def make_device_mesh(n_devices: int | None = None, axis: str = HYP_AXIS,
                      device: str | torch.device = "cuda",
                      devices: Sequence[str | torch.device] | None = None) -> DeviceMesh:
@@ -67,7 +53,7 @@ def make_device_mesh(n_devices: int | None = None, axis: str = HYP_AXIS,
     Else on CUDA the first n cards, cuda:0 to cuda:n-1 (default: all),
     raising when fewer exist; on the CPU n copies of the CPU (default 1)."""
     if devices is not None:
-        devs = tuple(_mesh_device(d) for d in devices)
+        devs = tuple(indexed_device(d) for d in devices)
         if not devs or (n_devices is not None and n_devices != len(devs)):
             raise ValueError(f"n_devices={n_devices} does not match {len(devs)} devices")
         return DeviceMesh(devs, axis)

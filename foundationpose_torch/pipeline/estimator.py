@@ -9,7 +9,7 @@ Port of foundationpose_tpu/pipeline/estimator.py:
     fut = est.track_one_async(rgb, depth, K)                  # TrackResult
     poses = fetch_track_results([fut, ...])                   # one fetch
 
-Per-frame compute runs on `device` (pipeline/graph.py); the rotation
+Per-frame compute runs on one `device` (pipeline/graph.py); the rotation
 grid is built once per object on the host (icosphere + greedy symmetry
 clustering), as in the reference (estimater.py:106-124). With the
 default config each frame is uploaded as one packed buffer holding a
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .. import torch_config  # noqa: F401
+from .. import torch_config
 from ..geometry.clustering import cluster_poses
 from ..geometry.icosphere import sample_views_icosphere
 from ..geometry.projection import guess_translation
@@ -57,7 +57,6 @@ from ..models.networks import (
     init_refine_net,
     init_score_net,
 )
-from ..parallel.sharding import batch_sharding, make_device_mesh, replicate_tree
 from ..utils import profiling
 from .config import EstimatorCfg
 from .graph import (
@@ -65,10 +64,8 @@ from .graph import (
     TRACK_PACK_FOOTER,
     pack_register_frame,
     pack_track_frame,
-    register_body_sharded,
     register_graph,
     register_graph_packed,
-    register_graph_packed_sharded,
     track_graph,
     track_graph_packed,
 )
@@ -271,36 +268,17 @@ class FoundationPose(GraphOwner):
         device: str | torch.device = "cuda",
         debug: int = 0,
         debug_dir: str | None = None,
-        n_devices: int | None = None,
-        device_mesh=None,
     ):
         """`refiner_params` / `scorer_params`: a RefineNet /
         ScoreNetMultiPair module or its state_dict. `device` is where
         every frame is computed; asking for CUDA without a card raises.
-
-        `n_devices` > 1 splits the register's hypotheses over a 1-D device
-        mesh (`parallel.make_device_mesh(n_devices, device=device)`: cuda:0
-        to cuda:n-1, or n copies of the CPU); `device_mesh` gives the mesh
-        itself (a device may repeat), in place of `device` and
-        `n_devices`. Without either the mesh is `device` alone. The
-        refiner, the scorer and the render mesh are replicated, the
-        rotation grid is padded to a multiple of the mesh size and split;
-        each device renders, refines and runs the scorer's trunk on its
-        shard, and only the pooled scorer features are gathered, onto the
-        mesh's first device, which also tracks. `debug` >= 2 writes crop
-        canvases of each register to `debug_dir`, >= 3 also the posed mesh
-        (utils/debug_vis.py)."""
+        `debug` >= 2 writes crop canvases of each register to `debug_dir`,
+        >= 3 also the posed mesh (utils/debug_vis.py)."""
         # The captured register and tracking steps (step_graphs.py):
         # reset_object, load_weights and any assignment of the refiner, the
         # scorer, the config or the render mesh clear them (GraphOwner).
         self._graphs = StepGraphs()
-        if device_mesh is None:
-            device_mesh = (make_device_mesh(n_devices, device=device) if n_devices and n_devices > 1
-                           else make_device_mesh(devices=[device]))
-        elif n_devices is not None:
-            raise ValueError("give n_devices or device_mesh, not both")
-        self.device_mesh = device_mesh
-        self.device = device_mesh.first
+        self.device = torch_config.indexed_device(device)
         self.debug = debug
         self.debug_dir = debug_dir
         self._guess_center = None  # set by register(); read by the debug dumps
@@ -402,8 +380,7 @@ class FoundationPose(GraphOwner):
             self.cfg.cluster_angle_deg, 99999.0, np.asarray(rot_grid), self.symmetry_tfs
         )
         n = len(rot_grid)
-        # the hypotheses split evenly over the mesh
-        pad = (-n) % int(np.lcm(self.cfg.rot_grid_pad, self.device_mesh.size))
+        pad = (-n) % self.cfg.rot_grid_pad
         if pad:
             rot_grid = np.concatenate([rot_grid, np.tile(np.eye(4)[None], (pad, 1, 1))])
         self.hyp_valid = torch.as_tensor(
@@ -411,25 +388,6 @@ class FoundationPose(GraphOwner):
         )
         self.rot_grid = torch.as_tensor(rot_grid, dtype=torch.float32, device=self.device)
         logger.info("rotation grid: %d (+%d pad)", n, pad)
-
-    def _mesh_on_one_device(self) -> bool:
-        """Is every device of the mesh the estimator's own? Then each shard
-        reads the estimator's own nets and meshes (`replicate_tree` hands
-        them over), and the register runs as a captured step."""
-        return all(d == self.device for d in self.device_mesh.devices)
-
-    def _shards(self):
-        """The eager register's inputs on a mesh of distinct cards, made
-        again for each register so that a net changed in place, a new
-        render mesh or a new rotation grid reaches every device: per mesh
-        device (refiner, scorer, mesh tensors, diameter), and the rows of
-        the rotation grid and of its validity. A device that is the first
-        one's gets the estimator's own objects."""
-        mesh = self.device_mesh
-        replicas = list(zip(*(replicate_tree(t, mesh) for t in (
-            self.refiner, self.scorer, self.mesh_tensors, self._diam))))
-        sh = batch_sharding(mesh)
-        return replicas, sh(self.rot_grid), sh(self.hyp_valid)
 
     def save_weights(self, refiner_path: str | None = None, scorer_path: str | None = None):
         """Save the refiner / scorer as `.npz` param trees in the JAX
@@ -542,34 +500,6 @@ class FoundationPose(GraphOwner):
             roi_contains_pose(p, K, H, W, roi, self.diameter, ratio) for p in poses[valid]
         )
 
-    def _register_step(self, K_t, iters, buf=None, hw=None, frame=None):
-        """One register on the mesh, of a packed buffer `buf` of an (h, w)
-        window or of an unpacked `frame` (rgb u8, depth f32, mask): the
-        step `register_graph_packed` or `register_graph` replayed from the
-        estimator's cache. Returns (order, refined, scores, center, n_valid).
-
-        On a mesh of distinct cards it runs the eager sharded body instead:
-        the replicas on the other cards are made anew at every register
-        (`_shards`), so that weights changed in place and a new render mesh
-        reach them, and a step captured over them would keep reading the
-        copies of its capture."""
-        if not self._mesh_on_one_device():
-            replicas, rot_parts, valid_parts = self._shards()
-            if buf is not None:
-                return register_graph_packed_sharded(replicas, self.cfg, rot_parts, valid_parts,
-                                                     K_t, buf, hw, iters)
-            rgb_u8, depth_t, mask_t = frame
-            rgb_t = rgb_u8.to(torch.float32) / 255.0
-            frames = [tuple(t.to(r.device) for t in (K_t, rgb_t, depth_t, mask_t))
-                      for r in rot_parts]
-            return register_body_sharded(replicas, self.cfg, rot_parts, valid_parts, frames, iters)
-        args = (self.refiner, self.scorer, self.cfg, self.mesh_tensors, self.rot_grid,
-                self.hyp_valid, K_t)
-        kw = dict(graphs=self._graphs, shards=self.device_mesh.size)
-        if buf is not None:
-            return register_graph_packed(*args, buf, self._diam, hw, iters, **kw)
-        return register_graph(*args, *frame, self._diam, iters, **kw)
-
     @torch.inference_mode()
     def register(self, K, rgb, depth, ob_mask, ob_id=None, iteration=5) -> np.ndarray:
         """Single-frame pose estimation (estimater.py:159-240)."""
@@ -592,6 +522,8 @@ class FoundationPose(GraphOwner):
         rgb_np = np.asarray(rgb)
         H, W = depth_np.shape
         K_t = torch.as_tensor(np.asarray(K_np, np.float32), device=self.device)
+        args = (self.refiner, self.scorer, self.cfg, self.mesh_tensors, self.rot_grid,
+                self.hyp_valid, K_t)
 
         def run_packed(roi):
             x0, y0, size = roi if roi is not None else (0, 0, None)
@@ -609,7 +541,8 @@ class FoundationPose(GraphOwner):
             with profiling.span("register.upload"):
                 buf = self._uploads.upload(h * w * 5 + h * w // 8 + REGISTER_PACK_FOOTER, pack)
             with profiling.span("register.step"):
-                return self._register_step(K_t, iters, buf=buf, hw=(h, w))
+                return register_graph_packed(*args, buf, self._diam, (h, w), iters,
+                                             graphs=self._graphs)
 
         if self.cfg.register_pack and depth_np.size % 8 == 0:
             with profiling.span("register.window"):
@@ -630,7 +563,7 @@ class FoundationPose(GraphOwner):
                          torch.as_tensor(np.asarray(depth_np, np.float32), device=dev),
                          torch.as_tensor(mask_np, device=dev))
             with profiling.span("register.step"):
-                out = self._register_step(K_t, iters, frame=frame)
+                out = register_graph(*args, *frame, self._diam, iters, graphs=self._graphs)
         order, refined, scores, center, _n = out
         self.poses = refined
         self.scores = scores

@@ -1,10 +1,9 @@
 """The register and track bodies: everything a frame computes on device.
 
-Port of foundationpose_tpu/pipeline/graph.py: `register_body_sharded`
-(`register_body` with its prune funnel, over the hypothesis shards of a
-device mesh, which may hold one device), `track_body`, `device_guess_translation`, the upload wire
+Port of foundationpose_tpu/pipeline/graph.py: `register_body` with its
+prune funnel, `track_body`, `device_guess_translation`, the upload wire
 formats (`pack_track_frame`, `pack_register_frame` on the host, their
-inverses on the device), the packed register and `track_chain_graph`.
+inverses on the device), the packed bodies and `track_chain_graph`.
 Each body is a plain function of tensors, run eagerly; no step copies a
 value to the host. `register_graph`, `register_graph_packed`,
 `track_graph` and `track_graph_packed`, as the JAX package jit-compiles
@@ -22,7 +21,6 @@ The bodies mark their device stages for `utils/profiling.py`: `prep`
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,9 +30,8 @@ from ..geometry.projection import depth_to_xyz_map
 from ..ops.depth_filters import bilateral_filter_depth, erode_depth
 from ..utils import profiling
 from .config import EstimatorCfg
-from .mesh_tensors import MeshTensors
 from .refiner import refine_poses
-from .scorer import score_poses_sharded
+from .scorer import score_poses
 from .step_graphs import StepGraphs, run_step
 
 
@@ -109,92 +106,48 @@ def _filtered_xyz(depth_raw, K, cfg: EstimatorCfg):
     return depth, depth_to_xyz_map(depth, K, zfar=cfg.zfar)
 
 
-def register_body_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid_parts, frames,
-                          iterations: int):
-    """Full registration, the hypotheses split over devices (one shard a
-    device of a `parallel.DeviceMesh`; an unsharded estimator's mesh has
-    one). Returns (order, refined_sorted, scores_sorted, center, n_valid).
+def register_body(refiner, scorer, mesh, diam, cfg: EstimatorCfg, rot_grid, hyp_valid, K, rgb,
+                  depth_raw, mask, iterations: int):
+    """Full registration: filter the frame, guess the translation, refine
+    every hypothesis of the rotation grid (K1 crops, K2 in RefineNet) and
+    score them as one comparison group. Returns (order, refined_sorted,
+    scores_sorted, center, n_valid).
 
     With cfg.prune_after_iter set (and fewer survivors than hypotheses,
     more iterations than the prune point), the register is funneled:
     every hypothesis is refined `prune_after_iter` times and ranked by
     the depth score; the top `prune_keep` are refined for the remaining
-    iterations and scored by the configured scorer.
-
-    replicas: per shard (refiner, scorer, mesh tensors, mesh diameter) on
-    its device; rot_grid_parts / hyp_valid_parts: its rows of the rotation
-    grid and their validity; frames: per shard (K, rgb, depth_raw, mask)
-    on its device. Each shard filters the frame, guesses the translation,
-    renders its crops (K1) and refines its rows (K2 in RefineNet) on its
-    device; the scorer gathers only what it must onto the first device
-    (`score_poses_sharded`). The funnel ranks every hypothesis on the
-    first device, then splits the survivors over the shards again. The
-    result lies on the first device, and is the one-shard result."""
+    iterations and scored by the configured scorer."""
     profiling.mark("prep")
-    first = rot_grid_parts[0].device
-    shards = []
-    for (ref, sco, mesh, diam), (K, rgb, depth_raw, mask), rot in zip(replicas, frames, rot_grid_parts):
-        depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
-        center, n_valid = device_guess_translation(depth, mask, K)
-        poses = rot.clone()
-        poses[:, :3, 3] = center[None]
-        shards.append(_Shard(ref, sco, mesh, diam, K, rgb, xyz_map, poses, center, n_valid))
-    hyp_valid = torch.cat([v.to(first) for v in hyp_valid_parts])
-    prune = funnel_of(cfg, iterations, hyp_valid.shape[0]) is not None
+    depth, xyz_map = _filtered_xyz(depth_raw, K, cfg)
+    center, n_valid = device_guess_translation(depth, mask, K)
+    poses = rot_grid.clone()
+    poses[:, :3, 3] = center[None]
 
-    def refine(parts, n):
-        return [
-            refine_poses(sh.refiner, cfg.refiner, sh.mesh, p, sh.K, sh.rgb, sh.xyz_map, sh.diam,
-                         iterations=n) if p.shape[0] else p
-            for sh, p in zip(shards, parts)
-        ]
+    def refine(p, n):
+        return refine_poses(refiner, cfg.refiner, mesh, p, K, rgb, xyz_map, diam, iterations=n)
 
-    def score(scfg, parts, valid):
-        return score_poses_sharded(
-            [(sh.scorer, sh.mesh, sh.K, sh.rgb, sh.xyz_map, sh.diam) for sh in shards], scfg, parts,
-            valid,
-        )
+    def score(scfg, p, valid):
+        return score_poses(scorer, scfg, mesh, p, K, rgb, xyz_map, diam, valid=valid)
 
-    def gather(parts):
-        return torch.cat([p.to(first) for p in parts])
-
-    def split(rows):
-        return [p.to(sh.poses.device) for p, sh in zip(torch.tensor_split(rows, len(shards)), shards)]
-
-    center, n_valid = shards[0].center, shards[0].n_valid
-    if not prune:
-        refined_parts = refine([sh.poses for sh in shards], iterations)
-        scores = score(cfg.scorer, refined_parts, hyp_valid)
+    if funnel_of(cfg, iterations, rot_grid.shape[0]) is None:
+        refined = refine(poses, iterations)
+        scores = score(cfg.scorer, refined, hyp_valid)
         profiling.mark("rank")
-        refined = gather(refined_parts)
         # stable, as jnp.argsort: padded hypotheses all hold -inf
         order = torch.argsort(-scores, stable=True)
         return order, refined[order], scores[order], center, n_valid
 
-    refined1_parts = refine([sh.poses for sh in shards], cfg.prune_after_iter)
-    pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1_parts, hyp_valid)
+    refined1 = refine(poses, cfg.prune_after_iter)
+    pre = score(dataclasses.replace(cfg.scorer, mode="depth"), refined1, hyp_valid)
     profiling.mark("rank")
     keep_idx = funnel_keep(pre, cfg.prune_keep)
-    refined1 = gather(refined1_parts)
-    sub_refined = gather(refine(split(refined1[keep_idx]), iterations - cfg.prune_after_iter))
-    sub_scores = score(cfg.scorer, split(sub_refined), hyp_valid[keep_idx])
+    sub_refined = refine(refined1[keep_idx], iterations - cfg.prune_after_iter)
+    sub_scores = score(cfg.scorer, sub_refined, hyp_valid[keep_idx])
     profiling.mark("rank")
     refined = refined1.index_copy(0, keep_idx, sub_refined)
     order, scores = funnel_order(pre, sub_scores, keep_idx, hyp_valid)
     return order, refined[order], scores[order], center, n_valid
-
-
-class _Shard(NamedTuple):
-    refiner: object
-    scorer: object
-    mesh: MeshTensors
-    diam: object
-    K: torch.Tensor
-    rgb: torch.Tensor
-    xyz_map: torch.Tensor
-    poses: torch.Tensor  # its rows of the rotation grid at the translation guess
-    center: torch.Tensor
-    n_valid: torch.Tensor
 
 
 def funnel_of(cfg: EstimatorCfg, iterations: int, n_hyp: int):
@@ -351,81 +304,58 @@ def shift_principal_point(K: torch.Tensor, x0, y0) -> torch.Tensor:
     return K - shift
 
 
-def register_graph_packed_sharded(replicas, cfg: EstimatorCfg, rot_grid_parts, hyp_valid_parts, K,
-                                  buf, hw, iterations):
-    """register_body_sharded on a pack_register_frame buffer: the packed
-    bytes are copied to each shard's device (once a device) and unpacked
-    there."""
+def register_packed_body(refiner, scorer, mesh, diam, cfg: EstimatorCfg, rot_grid, hyp_valid, K_full,
+                         buf, hw, iterations: int):
+    """register_body on a pack_register_frame buffer: unpack, shift the
+    full-frame K's principal point by the packed window offset, register."""
     profiling.mark("prep")
-    per_device = {}
-    frames = []
-    for rot in rot_grid_parts:
-        d = rot.device
-        if d not in per_device:
-            rgb, depth_raw, mask, x0, y0 = unpack_register_frame(buf.to(d), hw)
-            per_device[d] = (shift_principal_point(K.to(d), x0, y0), rgb, depth_raw, mask)
-        frames.append(per_device[d])
-    return register_body_sharded(replicas, cfg, rot_grid_parts, hyp_valid_parts, frames, iterations)
+    rgb, depth_raw, mask, x0, y0 = unpack_register_frame(buf, hw)
+    return register_body(refiner, scorer, mesh, diam, cfg, rot_grid, hyp_valid,
+                         shift_principal_point(K_full, x0, y0), rgb, depth_raw, mask, iterations)
 
 
-def _one_device_shards(refiner_net, scorer_net, mesh, diam, rot_grid, hyp_valid, shards):
-    """The register's per-shard arguments when every shard lies on the
-    inputs' device (a mesh that repeats one device): the same nets, mesh
-    and diameter for each, and the hypotheses split in `shards` rows."""
-    return ([(refiner_net, scorer_net, mesh, diam)] * shards, torch.chunk(rot_grid, shards),
-            torch.chunk(hyp_valid, shards))
-
-
-def _register_key(path, cfg: EstimatorCfg, rot_grid, iterations: int, shards: int, *sizes):
+def _register_key(path, cfg: EstimatorCfg, rot_grid, iterations: int, *sizes):
     """What jax.jit keys a register on, besides the inputs' shapes and
     dtypes (which StepGraphs adds): the path, the packed frame's (h, w),
-    the iterations, the funnel ((prune_after_iter, prune_keep), or None
-    for a full register) and the shard count."""
-    if rot_grid.shape[0] % shards:
-        raise ValueError(f"{rot_grid.shape[0]} hypotheses do not split over {shards} shards")
-    return (path, *sizes, iterations, funnel_of(cfg, iterations, rot_grid.shape[0]), shards)
+    the iterations and the funnel ((prune_after_iter, prune_keep), or None
+    for a full register)."""
+    return (path, *sizes, iterations, funnel_of(cfg, iterations, rot_grid.shape[0]))
 
 
 def register_graph(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid, K,
                    rgb_u8, depth_raw, mask, mesh_diameter, iterations,
-                   graphs: StepGraphs | None = None, shards: int = 1):
+                   graphs: StepGraphs | None = None):
     """The unpacked-upload register (K of the frame, rgb u8 (H, W, 3),
     depth f32 (H, W), mask (H, W)) as one captured step (`step_graphs`),
-    replayed from `graphs`, an owner's cache: register_body_sharded over
-    `shards` shards of the inputs' device. The step runs eagerly at its
-    first call and is captured at its second. Returns fresh (order,
-    refined_sorted, scores_sorted, center, n_valid)."""
-    iterations, shards = int(iterations), int(shards)
+    replayed from `graphs`, an owner's cache: register_body. The step runs
+    eagerly at its first call and is captured at its second. Returns fresh
+    (order, refined_sorted, scores_sorted, center, n_valid)."""
+    iterations = int(iterations)
 
     def body(rot_grid, hyp_valid, K, rgb_u8, depth_raw, mask, diam):
         profiling.mark("prep")
         rgb = rgb_u8.to(torch.float32) / 255.0
-        replicas, rot_parts, valid_parts = _one_device_shards(refiner_net, scorer_net, mesh, diam,
-                                                              rot_grid, hyp_valid, shards)
-        return register_body_sharded(replicas, cfg, rot_parts, valid_parts,
-                                     [(K, rgb, depth_raw, mask)] * shards, iterations)
+        return register_body(refiner_net, scorer_net, mesh, diam, cfg, rot_grid, hyp_valid, K, rgb,
+                             depth_raw, mask, iterations)
 
-    return run_step(graphs, _register_key("register", cfg, rot_grid, iterations, shards),
+    return run_step(graphs, _register_key("register", cfg, rot_grid, iterations),
                     (refiner_net, scorer_net, cfg, mesh), body, rot_grid, hyp_valid, K, rgb_u8,
                     depth_raw, mask, mesh_diameter, eager_first=True)
 
 
 def register_graph_packed(refiner_net, scorer_net, cfg: EstimatorCfg, mesh, rot_grid, hyp_valid,
                           K, buf, mesh_diameter, hw, iterations,
-                          graphs: StepGraphs | None = None, shards: int = 1):
-    """The packed-upload register (a pack_register_frame buffer of an
-    (h, w) window, K of the full frame: its principal point is shifted by
-    the packed offset) as one captured step, replayed from `graphs` (see
-    register_graph)."""
-    hw, iterations, shards = tuple(hw), int(iterations), int(shards)
+                          graphs: StepGraphs | None = None):
+    """register_packed_body (a pack_register_frame buffer of an (h, w)
+    window, K of the full frame) as one captured step, replayed from
+    `graphs` (see register_graph)."""
+    hw, iterations = tuple(hw), int(iterations)
 
     def body(rot_grid, hyp_valid, K, buf, diam):
-        replicas, rot_parts, valid_parts = _one_device_shards(refiner_net, scorer_net, mesh, diam,
-                                                              rot_grid, hyp_valid, shards)
-        return register_graph_packed_sharded(replicas, cfg, rot_parts, valid_parts, K, buf, hw,
-                                             iterations)
+        return register_packed_body(refiner_net, scorer_net, mesh, diam, cfg, rot_grid, hyp_valid, K,
+                                    buf, hw, iterations)
 
-    return run_step(graphs, _register_key("register_packed", cfg, rot_grid, iterations, shards, hw),
+    return run_step(graphs, _register_key("register_packed", cfg, rot_grid, iterations, hw),
                     (refiner_net, scorer_net, cfg, mesh), body, rot_grid, hyp_valid, K, buf,
                     mesh_diameter, eager_first=True)
 

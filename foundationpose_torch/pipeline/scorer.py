@@ -2,8 +2,7 @@
 
 Port of foundationpose_tpu/pipeline/scorer.py (the reference's
 ScorePredictor.predict, predict_score.py:160-226), network and depth
-modes, the group split over devices (`score_poses_sharded`) and the
-chunked tournament for more hypotheses than one group.
+modes and the chunked tournament for more hypotheses than one group.
 """
 from __future__ import annotations
 
@@ -62,34 +61,15 @@ def score_poses(
 ) -> torch.Tensor:
     """(N,) logits, higher is better; -inf where `valid` is False. `net`
     is the ScoreNetMultiPair (unused in depth mode)."""
-    return score_poses_sharded([(net, mesh, K, rgb, xyz_map, mesh_diameter)], cfg, [poses], valid)
-
-
-@torch.inference_mode()
-def score_poses_sharded(shards, cfg: ScorerCfg, poses_parts, valid=None) -> torch.Tensor:
-    """score_poses over one comparison group split across devices.
-
-    shards: per device (net, mesh, K, rgb, xyz_map, mesh_diameter), all on
-    that device; poses_parts: per device its (n_i, 4, 4) hypotheses (n_i
-    may be 0). Each device builds its crops; the depth score is per
-    hypothesis, the network score runs each device's trunk, self-attention
-    and mean-pool there (ScoreNetMultiPair.pooled) and gathers only the
-    pooled (N, D) features onto the first device for the cross-hypothesis
-    attention. Returns (N,) logits on the first device, in part order."""
     if cfg.mode not in ("depth", "network"):
         raise ValueError(f"scorer mode {cfg.mode!r} (resolve 'auto' in the estimator)")
-    dtype = torch_dtype(cfg.compute_dtype)
-    first = poses_parts[0].device
-    outs = []
-    for (net, mesh, K, rgb, xyz_map, diam), poses in zip(shards, poses_parts):
-        if poses.shape[0] == 0:
-            continue
-        profiling.mark("score.crops")
-        a, b = _crops(cfg, mesh, poses, K, rgb, xyz_map, diam)
-        profiling.mark("score.net")
-        outs.append(_depth_alignment_scores(a, b) if cfg.mode == "depth" else net.pooled(a, b, dtype))
-    cat = torch.cat([o.to(first) for o in outs])
-    scores = cat if cfg.mode == "depth" else shards[0][0].group_logits(cat, dtype)
+    profiling.mark("score.crops")
+    a, b = _crops(cfg, mesh, poses, K, rgb, xyz_map, mesh_diameter)
+    profiling.mark("score.net")
+    if cfg.mode == "depth":
+        scores = _depth_alignment_scores(a, b)
+    else:
+        scores = net(a, b, torch_dtype(cfg.compute_dtype))
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
     return scores

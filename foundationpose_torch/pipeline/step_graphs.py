@@ -6,7 +6,7 @@ compiled executable, one per (path, static sizes, iterations). Here a
 `StepGraph` captures one step in a `torch.cuda.CUDAGraph` and replays it
 per call, and a `StepGraphs` cache, owned by each `FoundationPose` and
 each `MultiTracker`, keeps one StepGraph per (path, sizes, iterations,
-funnel, shard or object count, shapes and dtypes of the dynamic inputs).
+funnel, object count, shapes and dtypes of the dynamic inputs).
 
 A graph reads its inputs from static tensors and writes its output (a
 tensor or a tuple of tensors) to static tensors, by address. So a call

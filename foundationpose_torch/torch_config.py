@@ -26,3 +26,12 @@ def default_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is False"
         )
     return dev
+
+
+def indexed_device(device: str | torch.device = "cuda") -> torch.device:
+    """default_device(device), a card with its index ("cuda" is the current
+    card), so that a module already on that card is not copied."""
+    dev = default_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -32,8 +32,8 @@ Port of foundationpose_tpu/utils/profiling.py (`stage_timer`,
   earlier replay's read is dropped (counter `device_reads_dropped`).
   Eager runs of a body (a register key's first call, the CPU) record
   ordinary timing events, or the host clock on the CPU, which is the
-  device there. A body run outside a StepGraph (the eager sharded
-  register on a mesh of distinct cards) records no device spans.
+  device there. A body called directly, outside a StepGraph, records
+  no device spans.
 * The recorder records while a `torch.profiler` is recording
   (`torch._C._autograd._profiler_enabled()`, which a CUDA-only profile
   turns on too) or between `enable()` and `disable()`. Off, a request

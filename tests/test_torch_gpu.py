@@ -400,12 +400,14 @@ def test_register_step_captured_at_the_second_call(card, uploads):
     """An estimator's register step on the card (test width, f32): the
     first register runs the step's body eagerly (no graph), the second
     captures it, the third replays it; each is bit-equal to the eager
-    sharded body (the branch a mesh of distinct cards takes), and each
-    counts the eager body's K1 and K2 launches (the capture counts
-    nothing, its replay adds what the capture recorded)."""
+    body (a register through an empty cache of steps, where its key's
+    first call runs eagerly), and each counts the eager body's K1 and K2
+    launches (the capture counts nothing, its replay adds what the
+    capture recorded)."""
     import dataclasses
 
     from chip_smoke import K_SMALL, _estimator, _small_scene
+    from foundationpose_torch.pipeline.step_graphs import StepGraphs
 
     box, cfg, frame = _small_scene()
     if uploads == "packed":
@@ -418,9 +420,9 @@ def test_register_step_captured_at_the_second_call(card, uploads):
         torch.cuda.synchronize()
         return raster_cuda.KERNEL.launches - r0, attention_cuda.KERNEL.launches - a0
 
-    est._mesh_on_one_device = lambda: False
+    graphs, est._graphs = est._graphs, StepGraphs()
     eager = counted(est.register)
-    del est._mesh_on_one_device
+    est._graphs = graphs
     want = (est.order.clone(), est.poses.clone(), est.scores.clone())
     assert len(est._graphs) == 0 and eager[0] > 0 and eager[1] > 0
     for call in range(3):

@@ -1,20 +1,15 @@
-"""The port's sharding (foundationpose_torch/parallel) against
-foundationpose_tpu.parallel on the same numpy inputs: the helpers, the
-hypothesis-sharded scoring, refinement and register (full and funneled,
-packed and unpacked uploads) over 8 CPU shards, MultiTracker on a sharded
-estimator, and the data-parallel train steps.
+"""The port's `parallel/` helpers and its data-parallel train steps
+against foundationpose_tpu.parallel on the same numpy inputs: the
+helpers bit-equal, the device mesh and its replicas, and the
+data-parallel refiner and scorer steps against unsharded steps and
+against the JAX package's steps on a "data" mesh.
 
 A mesh of 8 CPU shards stands in for the JAX package's 8 virtual host
-devices (tests/conftest.py). f32 on both sides. Tolerances, stated where
-used: poses 1e-4 and the same order (the JAX sharded tests' 1e-4);
-scores 1e-4; train steps by tests/test_torch_training.py's bounds (losses
-relative chip_smoke.TRAIN_LOSS_RTOL, parameters by
-chip_smoke.param_agreement). The comparisons with the JAX package's
-sharded register are `slow`, as tests/test_sharding.py's are; the port's
-sharded paths are also held against its own unsharded ones in tier 1.
+devices (tests/conftest.py). f32 on both sides. Train steps are held by
+tests/test_torch_training.py's bounds (losses relative
+chip_smoke.TRAIN_LOSS_RTOL, parameters by chip_smoke.param_agreement).
 """
 import copy
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -25,18 +20,10 @@ import torch
 from chip_smoke import TRAIN_LOSS_RTOL, agreement_ok, param_agreement
 from foundationpose_tpu import parallel as jpar
 from foundationpose_tpu.models import training as jtr
-from foundationpose_tpu.pipeline import FoundationPose as JPose
-from foundationpose_tpu.pipeline import MultiTracker as JMulti
 from foundationpose_torch import parallel as tpar
 from foundationpose_torch.models import training as ttr
 from foundationpose_torch.models.convert import params_from_jax
-from foundationpose_torch.pipeline import FoundationPose as TPose
-from foundationpose_torch.pipeline import MultiTracker as TMulti
-from foundationpose_torch.pipeline import make_mesh_tensors as t_mesh
-from foundationpose_torch.pipeline.refiner import refine_poses as t_refine
-from foundationpose_torch.pipeline.scorer import score_poses, score_poses_sharded
-from test_torch_estimator_io import _spread_scorer
-from test_torch_pipeline import KF, _box, _cfgs, _frame, _hyp_poses, _obs, _params
+from test_torch_pipeline import _hyp_poses
 
 CPU8 = tpar.make_device_mesh(8, device="cpu")
 
@@ -90,8 +77,6 @@ def test_device_mesh_and_replicas():
         net.weight.fill_(3.0)
     a, b = tpar.replicate_tree(net, two)
     assert a is net and b is not net and torch.equal(b.weight, net.weight)
-    with pytest.raises(ValueError, match="not both"):
-        TPose(mesh=_box(), cfg=_cfgs("depth")[1], device="cpu", n_devices=2, device_mesh=two)
     x = torch.arange(16.0).reshape(8, 2)
     parts = tpar.batch_sharding(m)(x)
     assert [p.shape for p in parts] == [(4, 2), (4, 2)] and torch.equal(torch.cat(parts), x)
@@ -100,235 +85,6 @@ def test_device_mesh_and_replicas():
         tpar.batch_sharding(CPU8)(x[:5])
     with pytest.raises(ValueError):
         tpar.batch_sharding(m, axis="hyp")
-
-
-# ------------------------------------------------- sharded score / refine
-
-
-def _scene(mode):
-    box = _box()
-    rgb, xyz = _obs(box)
-    poses = _hyp_poses(16)
-    rp, sp, tr, ts = _params(head_scale=0.05)
-    if mode == "network":
-        sp, ts = _spread_scorer(sp, poses)
-    _jc, tc = _cfgs(mode)
-    return box, rgb, xyz, poses, rp, sp, tr, ts, tc
-
-
-def _port_sharded_scores(ts, cfg, mt, poses, rgb, xyz):
-    parts, valid = tpar.shard_hypotheses(torch.as_tensor(poses), CPU8)
-    reps = tpar.replicate_tree((ts, mt, torch.as_tensor(KF), torch.as_tensor(rgb),
-                                torch.as_tensor(xyz), 0.25), CPU8)
-    return score_poses_sharded(reps, cfg.scorer, parts, torch.cat(valid)).numpy()
-
-
-@pytest.mark.parametrize("mode", ["depth", "network"])
-def test_sharded_scoring_matches_unsharded(mode):
-    """16 hypotheses over 8 shards: each shard's crops and trunk, the
-    pooled features gathered for the cross attention; scores within 1e-4
-    of the unsharded pass (network scorer spread: no ties)."""
-    box, rgb, xyz, poses, _rp, _sp, _tr, ts, tc = _scene(mode)
-    mt = t_mesh(box)
-    want = score_poses(ts, tc.scorer, mt, torch.as_tensor(poses), torch.as_tensor(KF),
-                       torch.as_tensor(rgb), torch.as_tensor(xyz), 0.25).numpy()
-    got = _port_sharded_scores(ts, tc, mt, poses, rgb, xyz)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    if mode == "network":
-        assert np.ptp(want) > 1e-2
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("mode", ["depth", "network"])
-def test_sharded_scoring_matches_jax(mode):
-    """The same against the JAX package's score_poses on its 8-device mesh."""
-    from foundationpose_tpu.pipeline import make_mesh_tensors as j_mesh
-    from foundationpose_tpu.pipeline.scorer import score_poses as j_score
-
-    jc, _tc = _cfgs(mode)
-    box, rgb, xyz, poses, _rp, sp, _tr, ts, tc = _scene(mode)
-    mj = jpar.make_device_mesh()
-    ph, vh = jpar.shard_hypotheses(jnp.asarray(poses), mj)
-    want = np.asarray(j_score(jax.tree.map(jnp.asarray, sp), jc.scorer, jpar.replicate_tree(j_mesh(box), mj),
-                              ph, jnp.asarray(KF), jnp.asarray(rgb), jnp.asarray(xyz), jnp.float32(0.25),
-                              valid=vh))
-    got = _port_sharded_scores(ts, tc, t_mesh(box), poses, rgb, xyz)
-    np.testing.assert_allclose(got[:16], want[:16], atol=1e-4, rtol=0)
-
-
-def _port_sharded_refine(tr, tc, mt, poses, rgb, xyz):
-    parts, _valid = tpar.shard_hypotheses(torch.as_tensor(poses), CPU8)
-    nets = tpar.replicate_tree((tr, mt), CPU8)
-    return torch.cat([t_refine(net, tc.refiner, m, p, torch.as_tensor(KF), torch.as_tensor(rgb),
-                               torch.as_tensor(xyz), 0.25, iterations=1)
-                      for (net, m), p in zip(nets, parts)]).numpy()
-
-
-def test_sharded_refine_matches_unsharded():
-    box, rgb, xyz, poses, _rp, _sp, tr, _ts, tc = _scene("depth")
-    mt = t_mesh(box)
-    want = t_refine(tr, tc.refiner, mt, torch.as_tensor(poses), torch.as_tensor(KF),
-                    torch.as_tensor(rgb), torch.as_tensor(xyz), 0.25, iterations=1).numpy()
-    got = _port_sharded_refine(tr, tc, mt, poses, rgb, xyz)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    assert np.abs(want - poses).max() > 1e-4  # the heads are live
-
-
-@pytest.mark.slow
-def test_sharded_refine_matches_jax():
-    from foundationpose_tpu.pipeline import make_mesh_tensors as j_mesh
-    from foundationpose_tpu.pipeline.refiner import refine_poses as j_refine
-
-    jc, _tc = _cfgs("depth")
-    box, rgb, xyz, poses, rp, _sp, tr, _ts, tc = _scene("depth")
-    mj = jpar.make_device_mesh()
-    ph, _vh = jpar.shard_hypotheses(jnp.asarray(poses), mj)
-    want = np.asarray(j_refine(jpar.replicate_tree(jax.tree.map(jnp.asarray, rp), mj), jc.refiner,
-                               jpar.replicate_tree(j_mesh(box), mj), ph, jnp.asarray(KF),
-                               jnp.asarray(rgb), jnp.asarray(xyz), jnp.float32(0.25), iterations=1))
-    got = _port_sharded_refine(tr, tc, t_mesh(box), poses, rgb, xyz)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-
-
-# ----------------------------------------------------- sharded register
-
-UPLOADS = {"unpacked": {}, "packed": dict(register_pack=True, register_roi=True)}
-FUNNEL = dict(prune_after_iter=1, prune_keep=8)
-
-
-def _estimators(mode, upload, funnel, n_devices):
-    """(box, port unsharded, port sharded): the same weights; the network
-    scorer spread on the funnel's survivors (or the top 16), so that the
-    ranking is not rounding noise."""
-    box = _box()
-    _rp, sp, tr, ts = _params(head_scale=0.05)
-    _jc, tc = _cfgs(mode)
-    tc = dataclasses.replace(tc, **UPLOADS[upload], **(FUNNEL if funnel else {}))
-    frame = _frame(box)
-    if mode == "network":
-        probe = TPose(mesh=box, cfg=tc, refiner_params=tr, scorer_params=ts, device="cpu")
-        probe.register(KF, *frame, iteration=2)
-        sp, ts = _spread_scorer(sp, probe.poses[:8 if funnel else 16].numpy())
-    t1 = TPose(mesh=box, cfg=tc, refiner_params=tr, scorer_params=ts, device="cpu")
-    tn = TPose(mesh=box, cfg=tc, refiner_params=tr, scorer_params=ts, device="cpu", n_devices=n_devices)
-    return box, frame, sp, t1, tn
-
-
-def _check_same_register(a, b, pa, pb, n):
-    """b's register against a's: the same order over a's n hypotheses,
-    poses and scores within 1e-4 (b's rows past n are its extra padding)."""
-    np.testing.assert_array_equal(b.order[:n].numpy(), a.order[:n].numpy())
-    np.testing.assert_allclose(pb, pa, atol=1e-4, rtol=0)
-    np.testing.assert_allclose(b.poses[:n].numpy(), a.poses[:n].numpy(), atol=1e-4, rtol=0)
-    sa, sb = a.scores[:n].numpy(), b.scores[:n].numpy()
-    fin = np.isfinite(sa)
-    np.testing.assert_array_equal(np.isfinite(sb), fin)
-    np.testing.assert_allclose(sb[fin], sa[fin], atol=1e-4, rtol=1e-6)
-
-
-@pytest.mark.parametrize("upload", list(UPLOADS))
-@pytest.mark.parametrize("mode,funnel", [("depth", False), ("network", False), ("depth", True),
-                                         ("network", True)])
-def test_sharded_register_matches_unsharded(mode, funnel, upload):
-    """FoundationPose(n_devices=8) on the CPU against the unsharded port:
-    the rotation grid padded to lcm(rot_grid_pad, 8), the same order,
-    poses and scores; the funneled register's survivors re-split over
-    the shards after the first-device ranking."""
-    box, frame, _sp, t1, t8 = _estimators(mode, upload, funnel, 8)
-    assert t8.device_mesh.size == 8 and t8.rot_grid.shape[0] % 8 == 0
-    p1 = t1.register(KF, *frame, iteration=2)
-    p8 = t8.register(KF, *frame, iteration=2)
-    n = int(t1.hyp_valid.sum())
-    assert n > 8 and not bool(t8.hyp_valid.all())
-    _check_same_register(t1, t8, p1, p8, n)
-    if funnel:
-        assert int((t8.scores > 1e4).sum()) == 8
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("mode,funnel", [("depth", False), ("network", False), ("depth", True),
-                                         ("network", True)])
-def test_sharded_register_matches_jax(mode, funnel):
-    """The port's 8-shard register against the JAX package's
-    FoundationPose(n_devices=8) (unpacked uploads, as the JAX tests):
-    poses in the same order within 1e-4."""
-    box, frame, sp, _t1, t8 = _estimators(mode, "unpacked", funnel, 8)
-    rp = _params(head_scale=0.05)[0]
-    jc, _tc = _cfgs(mode)
-    jc = dataclasses.replace(jc, **(FUNNEL if funnel else {}))
-    j8 = JPose(mesh=box, cfg=jc, refiner_params=jax.tree.map(jnp.asarray, rp),
-               scorer_params=jax.tree.map(jnp.asarray, sp), n_devices=8)
-    np.testing.assert_allclose(t8.rot_grid.numpy(), np.asarray(j8.rot_grid), atol=1e-6)
-    pj = j8.register(KF, *frame, iteration=2)
-    pt = t8.register(KF, *frame, iteration=2)
-    n = int(t8.hyp_valid.sum())
-    np.testing.assert_allclose(pt, pj, atol=1e-4, rtol=0)
-    np.testing.assert_allclose(t8.poses[:n].numpy(), np.asarray(j8.poses)[:n], atol=1e-4, rtol=0)
-
-
-def test_sharded_register_follows_changes_to_the_estimator():
-    """A mesh of two distinct devices ("cpu" and "cpu:1": the second shard
-    runs on copies of the nets and the render mesh, as on a second card)
-    against the unsharded estimator, through the changes a user makes
-    between registers: weights loaded in place into the estimator's nets,
-    then two new objects (reset_object + make_rotation_grid). Every
-    register has the same order, poses and scores within 1e-4, and the
-    weights' change moved the poses (the copies are made again)."""
-    box, frame, _sp, t1, _ = _estimators("network", "unpacked", False, None)
-    t2 = TPose(mesh=box, cfg=t1.cfg, refiner_params=copy.deepcopy(t1.refiner),
-               scorer_params=copy.deepcopy(t1.scorer),
-               device_mesh=tpar.make_device_mesh(devices=["cpu", "cpu:1"]))
-
-    def both():
-        p1 = t1.register(KF, *frame, iteration=2)
-        p2 = t2.register(KF, *frame, iteration=2)
-        _check_same_register(t1, t2, p1, p2, int(t1.hyp_valid.sum()))
-        return t1.poses.clone()
-
-    before = both()
-    sd = t1.refiner.state_dict()
-    sd = {k: -v if k.startswith(("trans_head.1", "rot_head.1")) else v for k, v in sd.items()}
-    for e in (t1, t2):
-        e.refiner.load_state_dict(sd)
-    assert float((both() - before).abs().max()) > 1e-4
-    for size in ((0.1, 0.14, 0.18), (0.12, 0.16, 0.2)):
-        obj = _box()
-        obj.vertices = obj.vertices * (np.array(size) / np.ptp(obj.vertices, axis=0))
-        for e in (t1, t2):
-            e.reset_object(mesh=obj)
-            e.make_rotation_grid(min_n_views=e.cfg.min_n_views, inplane_step=e.cfg.inplane_step_deg)
-        both()
-
-
-def test_multitracker_from_sharded_estimator():
-    """A sharded register hands over to MultiTracker on the mesh's first
-    device, and tracks as from the unsharded estimator; track_one on the
-    sharded estimator too."""
-    box, frame, _sp, t1, t8 = _estimators("depth", "unpacked", False, 8)
-    t1.register(KF, *frame, iteration=1)
-    t8.register(KF, *frame, iteration=1)
-    m1, m8 = TMulti.from_estimators([t1]), TMulti.from_estimators([t8])
-    assert m8.device == t8.device_mesh.first
-    nxt = _frame(box, t=(0.013, -0.018, 0.86))
-    q1 = m1.track(nxt[0], nxt[1], KF, iteration=1)
-    q8 = m8.track(nxt[0], nxt[1], KF, iteration=1)
-    np.testing.assert_allclose(q8, q1, atol=1e-4, rtol=0)
-    np.testing.assert_allclose(t8.track_one(nxt[0], nxt[1], KF, iteration=1),
-                               t1.track_one(nxt[0], nxt[1], KF, iteration=1), atol=1e-4, rtol=0)
-
-
-@pytest.mark.slow
-def test_multitracker_from_sharded_estimator_matches_jax():
-    box, frame, _sp, _t1, t8 = _estimators("depth", "unpacked", False, 8)
-    rp = _params(head_scale=0.05)[0]
-    jc, _tc = _cfgs("depth")
-    j8 = JPose(mesh=box, cfg=jc, refiner_params=jax.tree.map(jnp.asarray, rp), n_devices=8)
-    j8.register(KF, *frame, iteration=1)
-    t8.register(KF, *frame, iteration=1)
-    nxt = _frame(box, t=(0.013, -0.018, 0.86))
-    qj = JMulti.from_estimators([j8]).track(nxt[0], nxt[1], KF, iteration=1)
-    qt = TMulti.from_estimators([t8]).track(nxt[0], nxt[1], KF, iteration=1)
-    np.testing.assert_allclose(qt, qj, atol=1e-4, rtol=0)
 
 
 # ------------------------------------------------------- data parallel

@@ -3,18 +3,16 @@
 StepGraph runs its body eagerly through its static tensors: each path
 against the JAX functions of the same names, each bit-equal to its eager
 body, the first call of a key run eagerly and the second through the
-step, the cache's invalidation, the window recovery through cached
-steps, and the sharded register on a mesh of repeated and of distinct
-devices.
+step, the cache's invalidation and the window recovery through cached
+steps. Every path is run with every config: the depth scorer, the
+network scorer, and both funneled.
 
 Test width (base_width 4, 32x32 crops, f32) on the box scene of
 tests/test_torch_pipeline.py (`_registered`), 2 refine iterations; the
 window recovery on the scene of tests/test_torch_register_window.py.
 Tolerances: against the JAX package the top-5 order equal, poses and
 scores within 1e-4 (as test_register_then_track_matches_jax); the
-captured step against its eager body bit-equal (the same operations);
-sharded against unsharded 1e-4 and the same order (as
-tests/test_torch_parallel.py).
+captured step against its eager body bit-equal (the same operations).
 """
 import dataclasses
 
@@ -26,7 +24,6 @@ import torch
 
 from foundationpose_tpu.pipeline import FoundationPose as JPose
 from foundationpose_tpu.pipeline import graph as jg
-from foundationpose_torch.parallel import make_device_mesh
 from foundationpose_torch.pipeline import FoundationPose as TPose
 from foundationpose_torch.pipeline import graph as tg
 from foundationpose_torch.pipeline.step_graphs import StepGraphs
@@ -37,7 +34,9 @@ from test_torch_tracking import K, _port, box_frame, one_torch_thread, still  # 
 
 ITERS = 2
 FUNNEL = dict(prune_after_iter=1, prune_keep=8)
-CFGS = {"depth": ("depth", {}), "network": ("network", {}), "funneled": ("depth", FUNNEL)}
+CFGS = {"depth": ("depth", {}), "network": ("network", {}), "funneled": ("depth", FUNNEL),
+        "funneled network": ("network", FUNNEL)}
+PATHS = ["unpacked", "packed full frame", "packed window"]
 WINDOW = (32, 8, 96)  # x0, y0, size of the packed window on the 120x160 frame
 
 
@@ -49,7 +48,8 @@ def frame():
 def _estimators(name, frame):
     """(JAX estimator, port estimator) on the box with the same weights and
     config; the network scorer spread on the top 16 hypotheses of a first
-    register, so that its ranking is not rounding noise."""
+    register (a funneled one's 8 survivors), so that its ranking is not
+    rounding noise."""
     mode, extra = CFGS[name]
     box = _box()
     rp, sp, tr, ts = _params(head_scale=0.05)
@@ -57,7 +57,7 @@ def _estimators(name, frame):
     if mode == "network":
         probe = TPose(mesh=box, cfg=tc, refiner_params=tr, scorer_params=ts, device="cpu")
         probe.register(KF, *frame, iteration=ITERS)
-        sp, ts = _spread_scorer(sp, probe.poses[:16].numpy())
+        sp, ts = _spread_scorer(sp, probe.poses[:FUNNEL["prune_keep"] if extra else 16].numpy())
     je = JPose(mesh=box, cfg=jc, refiner_params=jax.tree.map(jnp.asarray, rp),
                scorer_params=jax.tree.map(jnp.asarray, sp))
     te = TPose(mesh=box, cfg=tc, refiner_params=tr, scorer_params=ts, device="cpu")
@@ -79,30 +79,26 @@ def _packed(path, frame):
     return tg.pack_register_frame(rgb, depth, mask), depth.shape
 
 
-def _port_step(te, path, frame, graphs, shards=1):
+def _port_step(te, path, frame, graphs):
     args = (te.refiner, te.scorer, te.cfg, te.mesh_tensors, te.rot_grid, te.hyp_valid,
             torch.tensor(KF))
     if path == "unpacked":
-        return tg.register_graph(*args, *map(torch.tensor, frame), te._diam, ITERS, graphs=graphs,
-                                 shards=shards)
+        return tg.register_graph(*args, *map(torch.tensor, frame), te._diam, ITERS, graphs=graphs)
     buf, hw = _packed(path, frame)
     return tg.register_graph_packed(*args, torch.from_numpy(buf), te._diam, hw, ITERS,
-                                    graphs=graphs, shards=shards)
+                                    graphs=graphs)
 
 
-def _eager_body(te, path, frame, shards=1):
-    """The eager bodies called directly, the shards on the one CPU."""
-    replicas = [(te.refiner, te.scorer, te.mesh_tensors, te._diam)] * shards
-    rot, valid = torch.chunk(te.rot_grid, shards), torch.chunk(te.hyp_valid, shards)
-    Kt = torch.tensor(KF)
+def _eager_body(te, path, frame):
+    """The eager bodies called directly."""
+    args = (te.refiner, te.scorer, te.mesh_tensors, te._diam, te.cfg, te.rot_grid, te.hyp_valid,
+            torch.tensor(KF))
     with torch.inference_mode():
         if path == "unpacked":
             rgb, depth, mask = map(torch.tensor, frame)
-            frames = [(Kt, rgb.to(torch.float32) / 255.0, depth, mask)] * shards
-            return tg.register_body_sharded(replicas, te.cfg, rot, valid, frames, ITERS)
+            return tg.register_body(*args, rgb.to(torch.float32) / 255.0, depth, mask, ITERS)
         buf, hw = _packed(path, frame)
-        return tg.register_graph_packed_sharded(replicas, te.cfg, rot, valid, Kt,
-                                                torch.from_numpy(buf), hw, ITERS)
+        return tg.register_packed_body(*args, torch.from_numpy(buf), hw, ITERS)
 
 
 def _jax_graph(je, te, path, frame):
@@ -124,9 +120,8 @@ def _by_hypothesis(order, rows):
     return out
 
 
-@pytest.mark.parametrize("path,name", [
-    ("unpacked", "depth"), ("unpacked", "network"), ("unpacked", "funneled"),
-    ("packed full frame", "depth"), ("packed window", "network"), ("packed window", "funneled")])
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("path", PATHS)
 def test_register_graph_matches_jax(pairs, frame, path, name):
     """Each path and each config against the JAX graph of the same name
     (the step's two calls are bit-equal: the test below)."""
@@ -142,31 +137,31 @@ def test_register_graph_matches_jax(pairs, frame, path, name):
     np.testing.assert_allclose(sg[fin], sw[fin], atol=1e-4, rtol=1e-4)  # rtol: the funnel's +1e5
     np.testing.assert_allclose(got[3], want[3], atol=1e-4, rtol=0)
     assert int(got[4]) == int(want[4])
-    if name == "funneled":
+    mode, extra = CFGS[name]
+    if extra:
         assert int((got[2] > 1e4).sum()) == FUNNEL["prune_keep"]
-    if name == "network":  # the top of the ranking is not a near-tie
+    if mode == "network":  # the top of the ranking is not a near-tie
         assert got[2][0] - got[2][1] > 1e-3
 
 
-@pytest.mark.parametrize("path,name,shards", [
-    ("unpacked", "depth", 1), ("packed full frame", "depth", 1), ("unpacked", "network", 1),
-    ("packed window", "funneled", 1), ("unpacked", "depth", 2), ("packed full frame", "funneled", 2)])
-def test_register_step_bit_equal_to_eager_body(pairs, frame, path, name, shards):
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("path", PATHS)
+def test_register_step_bit_equal_to_eager_body(pairs, frame, path, name):
     """The first call of a key runs the body through the static inputs and
     keeps no static output (on the card: captures nothing); the second
     goes through the step (on the card: captures and replays). Both give
     the eager body's result bit for bit, as fresh tensors."""
     _je, te = pairs[name]
-    want = _eager_body(te, path, frame, shards)
+    want = _eager_body(te, path, frame)
     graphs = StepGraphs()
-    first = _port_step(te, path, frame, graphs, shards)
+    first = _port_step(te, path, frame, graphs)
     (key, step), = graphs.items()
     assert key[0][0] == ("register" if path == "unpacked" else "register_packed")
-    assert key[0][-1] == shards and key[0][-3] == ITERS
-    assert key[0][-2] == ((FUNNEL["prune_after_iter"], FUNNEL["prune_keep"]) if name == "funneled"
+    assert key[0][-2] == ITERS
+    assert key[0][-1] == ((FUNNEL["prune_after_iter"], FUNNEL["prune_keep"]) if CFGS[name][1]
                           else None)
     assert (step.eager_runs, step.replays, step.output, step.graph) == (1, 0, None, None)
-    second = _port_step(te, path, frame, graphs, shards)
+    second = _port_step(te, path, frame, graphs)
     assert len(graphs) == 1 and step.replays == 1 and step.eager_runs == 1
     for got in (first, second):
         assert len(got) == len(want) == 5
@@ -188,7 +183,7 @@ def test_estimator_register_dispatches_the_step(pairs, frame):
               device="cpu")
     p1, p2 = _registered_twice(e, frame)
     (key, step), = e._graphs.items()
-    assert key[0] == ("register", ITERS, None, 1)
+    assert key[0] == ("register", ITERS, None)
     assert (step.eager_runs, step.replays) == (1, 1)
     np.testing.assert_array_equal(p1, p2)
     want = _eager_body(e, "unpacked", frame)
@@ -213,12 +208,15 @@ def test_weights_loaded_in_place_reach_the_step(pairs, frame):
     np.testing.assert_array_equal(got, fresh.register(KF, *frame, iteration=ITERS))
 
 
-@pytest.mark.parametrize("change", ["load_weights", "reset_object", "scorer"])
+@pytest.mark.parametrize("change", ["load_weights", "reset_object", "scorer", "another object"])
 def test_replacing_what_the_register_reads_drops_the_cache(pairs, frame, change, tmp_path):
+    """Each change clears the cache, and the next register makes a new key.
+    After a new object of another size and its rotation grid, both the
+    eager and the captured register equal a fresh estimator's on it."""
     _je, te = pairs["depth"]
     e = TPose(mesh=_box(), cfg=te.cfg, refiner_params=te.refiner, scorer_params=te.scorer,
               device="cpu")
-    e.register(KF, *frame, iteration=ITERS)
+    before = e.register(KF, *frame, iteration=ITERS)
     assert len(e._graphs) == 1
     if change == "load_weights":
         path = str(tmp_path / "scorer.npz")
@@ -226,12 +224,25 @@ def test_replacing_what_the_register_reads_drops_the_cache(pairs, frame, change,
         e.load_weights(scorer_path=path)
     elif change == "reset_object":
         e.reset_object(mesh=_box())
+    elif change == "another object":
+        obj = _box()
+        obj.vertices = obj.vertices * (np.array((0.1, 0.14, 0.18)) / np.ptp(obj.vertices, axis=0))
+        e.reset_object(mesh=obj)
+        e.make_rotation_grid(min_n_views=e.cfg.min_n_views, inplane_step=e.cfg.inplane_step_deg)
     else:
         setattr(e, change, getattr(e, change))
     assert len(e._graphs) == 0
-    e.register(KF, *frame, iteration=ITERS)
+    got = e.register(KF, *frame, iteration=ITERS)
     (_key, step), = e._graphs.items()
     assert (step.eager_runs, step.replays) == (1, 0)  # a new key: eager again
+    if change == "another object":
+        fresh = TPose(mesh=obj, cfg=te.cfg, refiner_params=te.refiner, scorer_params=te.scorer,
+                      device="cpu")
+        want = fresh.register(KF, *frame, iteration=ITERS)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(e.register(KF, *frame, iteration=ITERS), want)
+        assert step.replays == 1
+        assert np.abs(want - before).max() > 1e-6  # the register read the new object
 
 
 def test_window_recovery_through_cached_steps(still, box_frame):  # noqa: F811
@@ -264,30 +275,3 @@ def test_window_result_survives_the_full_frame_replay(pairs, frame):
         full = _port_step(te, "packed full frame", frame, graphs)
     assert all(torch.equal(a, b) for a, b in zip(window, _eager_body(te, "packed window", frame)))
     assert not torch.equal(window[1], full[1])
-
-
-@pytest.mark.parametrize("upload", ["unpacked", "packed"])
-def test_sharded_register_repeated_devices_cached_distinct_devices_eager(pairs, frame, upload):
-    """On a mesh of 2 repeated CPU devices every shard reads the
-    estimator's own nets: the sharded register goes through the cache
-    (one key of 2 shards). On a mesh of distinct devices ("cpu", "cpu:1",
-    as two cards) the replicas are made anew at every register, and the
-    register runs its eager sharded body: nothing is cached. Both give
-    the unsharded register's order and poses."""
-    _je, te = pairs["depth"]
-    cfg = dataclasses.replace(te.cfg, register_pack=upload == "packed")
-    one, two, distinct = (
-        TPose(mesh=_box(), cfg=cfg, refiner_params=te.refiner, scorer_params=te.scorer, **kw)
-        for kw in (dict(device="cpu"), dict(device_mesh=make_device_mesh(devices=["cpu", "cpu"])),
-                   dict(device_mesh=make_device_mesh(devices=["cpu", "cpu:1"]))))
-    assert two._mesh_on_one_device() and not distinct._mesh_on_one_device()
-    want = one.register(KF, *frame, iteration=ITERS)
-    for e in (two, distinct):
-        for p in _registered_twice(e, frame):
-            np.testing.assert_allclose(p, want, atol=1e-4, rtol=0)
-        n = int(one.hyp_valid.sum())
-        np.testing.assert_array_equal(e.order[:n].numpy(), one.order[:n].numpy())
-        np.testing.assert_allclose(e.poses[:n].numpy(), one.poses[:n].numpy(), atol=1e-4, rtol=0)
-    (key, step), = two._graphs.items()
-    assert key[0][-1] == 2 and (step.eager_runs, step.replays) == (1, 1)
-    assert len(distinct._graphs) == 0
