@@ -23,6 +23,13 @@ with a nonzero exit and no result line):
    largest shapes, 504 x 80 x 80 x 64 bf16 with bias, BN and ReLU and
    252 x 40 x 40 x 256 with bias, BN, residual and ReLU: bit-equal to the
    plain ops, and timed in turns with them, beside its bytes' bound;
+4c. the trunks' first conv (cuDNN, 7x7 stride 2, 6 -> 64 channels) at the
+   register's shape, 504 x 160 x 160 channels-last bf16, at its 6 channels
+   and at the width models/networks.py pads them to, through the port's
+   `pad_pairs` and `layers.Conv2d` (`pad_to`): the padded product
+   against the 6-channel one, each width's kernels by name (the padded one
+   must not run cuDNN's generic engine), both timed in turns beside the
+   6-channel conv's bound;
 5. K3 and K4, the hash-grid backward's segment-adds, against their plain
    versions at the shapes of NerfCfg's defaults (per-row bound 1e-5 of
    the row's sum of |update|: atomics add in another order each run),
@@ -182,8 +189,9 @@ their records stay comparable; phase 9 runs the defaults.
 
 Every kernel's bound is computed from this run's inputs (`bound`: the
 bytes it must move over the memory rate or its operations over the peak
-rate, whichever is larger). Prints a {"kernels": [...]} JSON line, then as
-its last line {"ok": true, "device": {...}}.
+rate, whichever is larger). Prints a {"first_conv": {...}} JSON line (4c),
+a {"kernels": [...]} JSON line, then as its last line {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -641,6 +649,66 @@ def epilogue_phase():
     first = "epi_{}x{}x{}x{}".format(*EPILOGUE_SHAPES[0][0])
     out.update({f"epi_{k}": out[f"{first}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     out["epi_library_ms"] = None
+    return out
+
+
+# The trunks' first conv in a register (models/networks.py::_encode_a): 252
+# pairs' A and B crops, NHWC, 6 channels, 7x7 at stride 2 to 64 channels.
+FIRST_CONV = (504, 160, 160, 6)
+
+
+def first_conv_phase():
+    """The trunks' first conv (7x7, stride 2, 64 out, channels-last bf16)
+    at the register's shape, as the port runs it: the pairs through
+    `networks.pad_pairs` at its 6 channels and at the width
+    `padded_channels` gives, then a `layers.Conv2d` (no bias, so no
+    epilogue) with `pad_to` that width. The padded product against the
+    6-channel one (the zeros add nothing; the f32 sums may round in
+    another order), each width's kernels by name from a CUDA-only trace,
+    and their times in turns (6, padded, padded, 6) beside the bound of
+    the 6-channel conv (input and weight read and output written once, or
+    its operations at the bf16 peak). Fails if the padded width runs
+    cuDNN's generic engine. Returns the times under `conv7_*` keys."""
+    import torch
+
+    from foundationpose_torch.models import layers
+    from foundationpose_torch.models.networks import pad_pairs, padded_channels
+
+    n, h, w, c = FIRST_CONV
+    bf = torch.bfloat16
+    pad = padded_channels(c, bf, "cuda")
+    widths = (c, pad)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    A, B = ((torch.rand((n // 2, h, w, c), generator=g, device="cuda") * 2 - 1) for _ in range(2))
+    conv = layers.Conv2d(c, 64, 7, 2, bias=False).to("cuda")
+    with torch.no_grad():
+        conv.weight.copy_(((torch.rand((64, c, 7, 7), generator=g, device="cuda") - 0.5) / 10).to(bf))
+    xs = {cw: pad_pairs(A, B, bf, cw).permute(0, 3, 1, 2) for cw in widths}
+    out = {"conv7_padded_width": pad}
+    with torch.inference_mode():
+        fns = {cw: (lambda cw=cw: conv(xs[cw], bf, pad_to=cw)) for cw in widths}
+        ref = fns[c]().float()
+        top = float(ref.abs().max())
+        for cw in widths:
+            err = float((fns[cw]().float() - ref).abs().max())
+            by_kernel = _cuda_trace(f"first_conv_c{cw}", fns[cw])[3]
+            kernels = {k: us / 1e3 for k, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])}
+            out[f"conv7_c{cw}_kernels"] = kernels
+            out[f"conv7_c{cw}_err"] = err
+            print(f"  first conv, {cw} channels: max |d| {err:.3e} against 6 channels (max |y| {top:.3f}); "
+                  f"kernels {', '.join(f'{k[:72]} {ms:.3f} ms' for k, ms in kernels.items())}")
+            if err > 2 ** -7 * top:
+                raise AssertionError(f"the first conv at {cw} channels differs from 6 by {err:.3e}")
+        if any("convolve_common_engine" in k for k in out[f"conv7_c{pad}_kernels"]):
+            raise AssertionError(f"the first conv at {pad} channels runs cuDNN's generic engine")
+        times = _in_turns(fns, reps=10)
+    y = n * 64 * (h // 2) * (w // 2)
+    b_ms, b_by = bound(2 * (A.numel() + B.numel() + conv.weight.numel() + y), 2 * 49 * c * y, "bf16")
+    for cw, ms in times.items():
+        out[f"conv7_c{cw}_ms"] = ms
+        print(f"  first conv {(n, cw, h, w)} bf16 channels-last: {ms:.4f} ms, "
+              f"{b_ms / ms * 100:.1f}% of the 6-channel bound {b_ms:.4f} ms ({b_by})")
+    out.update(conv7_bound_ms=b_ms, conv7_bound_by=b_by)
     return out
 
 
@@ -3588,12 +3656,11 @@ def _device_time_us(trace_path):
     return busy, len(acts), by_kernel, launches
 
 
-def _profile(name, fn, n):
-    """Where the time of `fn` (which ends by reading a result on the host)
-    goes, in this run. n calls untraced; n calls under a CUDA-only trace
-    (little host cost): the device's busy time, its idle share over the
-    traced host wall time and the kernels that own the device time; then n
-    calls under a CPU + CUDA trace: the operators that own it. All per call."""
+def _cuda_trace(name, fn):
+    """fn once under a CUDA-only trace (little host cost), written to
+    build/profile/<name>.json: the host's wall time (ms, to the device's
+    end), then `_device_time_us`'s readings of the trace. Fails if the
+    trace holds no device activity."""
     import os
 
     import torch
@@ -3601,6 +3668,28 @@ def _profile(name, fn, n):
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    busy_us, n_act, by_kernel, n_launch = _device_time_us(path)
+    if n_act == 0:
+        raise AssertionError(f"the CUDA-only trace of {name} holds no device activity")
+    return wall_ms, busy_us, n_act, by_kernel, n_launch
+
+
+def _profile(name, fn, n):
+    """Where the time of `fn` (which ends by reading a result on the host)
+    goes, in this run. n calls untraced; n calls under a CUDA-only trace
+    (little host cost): the device's busy time, its idle share over the
+    traced host wall time and the kernels that own the device time; then n
+    calls under a CPU + CUDA trace: the operators that own it. All per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     def calls():
         for _ in range(n):
@@ -3611,16 +3700,8 @@ def _profile(name, fn, n):
     t0 = time.perf_counter()
     calls()
     plain_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        calls()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-    path = os.path.join(out_dir, f"{name}_cuda_only.json")
-    prof.export_chrome_trace(path)
-    busy_us, n_act, by_kernel, n_launch = _device_time_us(path)
-    if n_act == 0:
-        raise AssertionError("the CUDA-only trace holds no device activity")
+    wall_ms, busy_us, n_act, by_kernel, n_launch = _cuda_trace(f"{name}_cuda_only", calls)
+    wall_ms /= n
     busy_ms = busy_us / 1e3 / n
     print(f"  {name}: {plain_ms:.3f} ms untraced, {wall_ms:.3f} ms under the CUDA-only trace, "
           f"device busy {busy_ms:.3f} ms, {n_act / n:.0f} device activities and "
@@ -3657,6 +3738,7 @@ def main():
     k1_err = phase("K1 tile rasterizer vs brute", 240, k1_phase)
     k2_err = phase("K2 attention vs plain", 120, k2_phase)
     epi = phase("fused layer epilogue vs plain", 120, epilogue_phase)
+    conv7 = phase("the trunks' first conv: 6 channels against padded", 120, first_conv_phase)
     seg = phase("K3, K4 segment-adds vs plain at the NeRF shapes", 240, k3_k4_phase)
     phase("small slice: card vs CPU plain path", 180, small_slice_phase)
     phase("small NeRF slice: card vs CPU plain path", 180, small_nerf_phase)
@@ -3730,6 +3812,7 @@ def main():
              **{k: v for k, v in epi.items() if k.count("x") == 3}),
     ]
     print(_CARD)
+    print(json.dumps({"first_conv": conv7}))
     print(json.dumps({"kernels": kernels}))
     import torch as _torch
 

@@ -71,13 +71,26 @@ def epilogue(y, dtype, bias=None, bn=None, residual=None, relu=False, axis=-1):
 
 class Conv2d(nn.Conv2d):
     """Conv with padding (k-1)//2, computed in the call's dtype, then
-    `epilogue` (bias, optional BN, residual and ReLU)."""
+    `epilogue` (bias, optional BN, residual and ReLU).
+
+    `pad_to`, the caller's word that x's channels past the weight's are
+    zeros (networks.pad_pairs), pads the weight's copy in `dtype` with
+    zeros to that many input channels, so the sums are the same and the
+    parameter keeps its shape; under autograd its gradient is the padded
+    one's slice. While the recorder records, counter `conv.channel_pad`
+    counts such calls. Without it, a channel count other than the
+    weight's raises."""
 
     def __init__(self, cin, cout, k, stride=1, bias=True):
         super().__init__(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=bias)
 
-    def forward(self, x, dtype=torch.float32, bn=None, residual=None, relu=False):
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
+    def forward(self, x, dtype=torch.float32, bn=None, residual=None, relu=False, pad_to=None):
+        w = self.weight.to(dtype)
+        if pad_to is not None and pad_to > self.in_channels:
+            w = F.pad(w, (0, 0, 0, 0, 0, pad_to - self.in_channels))
+            if profiling.recording():
+                profiling.count("conv.channel_pad")
+        y = F.conv2d(x.to(dtype), w, None, self.stride, self.padding)
         return epilogue(y, dtype, self.bias, bn, residual, relu, axis=1)
 
 
@@ -126,9 +139,10 @@ class ConvBNReLU(nn.Module):
         mods.append(ReLU())
         self.net = nn.ModuleList(mods)
 
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, pad_to=None):
+        """`pad_to`: the conv's (Conv2d.forward)."""
         bn = self.net[1] if isinstance(self.net[1], BatchNorm2d) else None
-        return self.net[0](x, dtype, bn=bn, relu=True)
+        return self.net[0](x, dtype, bn=bn, relu=True, pad_to=pad_to)
 
 
 class ResnetBasicBlock(nn.Module):

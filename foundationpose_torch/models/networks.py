@@ -74,11 +74,50 @@ def _run(mods, x, dtype):
     return x
 
 
+# Channels cuDNN's tensor-core convolutions run best at for the trunks' first
+# conv (7x7, stride 2, 64 out, channels-last bf16) on an H100: 5.57 ms at 6
+# channels (its generic engine), 2.84 at 8, 1.57 at 16, 1.78 at 24 for 504
+# crops of 160x160 (PERF.md, section 6).
+MIN_PADDED_CHANNELS = 16
+
+
+def padded_channels(c, dtype, device):
+    """The channel count the trunk's input takes: on a card in bf16 or
+    fp16, a c that is not a multiple of 8 (which cuDNN's tensor-core
+    convolutions want) rounds up to one, and to MIN_PADDED_CHANNELS at
+    least; elsewhere c."""
+    half = dtype in (torch.bfloat16, torch.float16)
+    if not half or torch.device(device).type != "cuda" or c % 8 == 0:
+        return c
+    return max(MIN_PADDED_CHANNELS, -(-c // 8) * 8)
+
+
+def pad_pairs(A, B, dtype, c_pad):
+    """A and B (N, H, W, c) as one (2N, H, W, c_pad) batch in `dtype`, the
+    channels past c zero: one fill of the buffer, then one casting copy
+    per crop set."""
+    n, h, w, c = A.shape
+    x = torch.zeros((2 * n, h, w, c_pad), dtype=dtype, device=A.device)
+    x[:n, ..., :c].copy_(A)
+    x[n:, ..., :c].copy_(B)
+    return x
+
+
+def _encode_pairs(enc_a, A, B, dtype):
+    """encodeA over A then B as one batch: (N, H, W, c) pairs -> (2N, C,
+    H', W'). The first conv's input channels are zero-padded where
+    `padded_channels` says so, and its weight with them (its `pad_to`),
+    which adds exact zeros to its sums."""
+    c_pad = padded_channels(A.shape[-1], dtype, A.device)
+    x = pad_pairs(A, B, dtype, c_pad).permute(0, 3, 1, 2)  # NCHW, channels-last in memory
+    x = enc_a[0](x, dtype, pad_to=c_pad)
+    return _run(enc_a[1:], x, dtype)
+
+
 def _tokens(enc_a, enc_ab, A, B, embed_dim, dtype):
     """Shared trunk: (N, H, W, c) pairs -> (N, L, D) tokens + positions."""
     n = A.shape[0]
-    x = torch.cat([A, B], dim=0).to(dtype).permute(0, 3, 1, 2)  # NCHW
-    x = _run(enc_a, x, dtype)
+    x = _encode_pairs(enc_a, A, B, dtype)
     ab = _run(enc_ab, torch.cat([x[:n], x[n:]], dim=1), dtype)
     # NHWC before flattening: tokens are the row-major 20x20 positions.
     tokens = ab.permute(0, 2, 3, 1).reshape(n, -1, embed_dim)

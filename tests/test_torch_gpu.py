@@ -112,6 +112,122 @@ def test_raster_boxes_match_plain_and_shade_does_not_sync(card):
     assert (out[0] - color).abs().max().item() < 2e-4 and (out[1] - xyz).abs().max().item() < 2e-4
 
 
+def _first_conv_inputs(card, n, seed=5):
+    """The trunks' first ConvBNReLU (6 -> 64, 7x7, stride 2; BN statistics
+    away from the identity) and n pairs of 160x160 crops on the card, f32."""
+    from foundationpose_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(seed)
+    layer = L.init_weights_(L.ConvBNReLU(6, 64, 7, 2, True), gen)
+    bn = layer.net[1]
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.rand(64, generator=gen) - 0.5)
+        bn.running_var.copy_(torch.rand(64, generator=gen) + 0.2)
+        bn.weight.copy_(torch.rand(64, generator=gen) + 0.5)
+        bn.bias.copy_(torch.rand(64, generator=gen) - 0.5)
+    A, B = (torch.rand((n, 160, 160, 6), generator=gen).to(card) * 2 - 1 for _ in range(2))
+    return layer.eval().to(card), A, B
+
+
+def test_padded_first_conv_matches_f32(card):
+    """The first conv at the register's shape (252 pairs) in bf16, its
+    input padded as models/networks.py::_tokens pads it and its epilogue
+    fused: within twice its three bf16 roundings (product, bias, BN: each
+    at most 2^-8 of the value rounded) and the f32 sums' order of an f32
+    conv and epilogue of the same bf16 inputs and weight, and counted as
+    one padded conv and one fused epilogue."""
+    from foundationpose_torch.models import networks as nets
+    from foundationpose_torch.utils import profiling
+
+    layer, A, B = _first_conv_inputs(card, 252)
+    bf = torch.bfloat16
+    c_pad = nets.padded_channels(6, bf, card)
+    assert c_pad % 8 == 0 and c_pad > 6
+    x = nets.pad_pairs(A, B, bf, c_pad)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with torch.inference_mode():
+            got = layer(x.permute(0, 3, 1, 2), bf, pad_to=c_pad).float()
+    finally:
+        profiling.disable()
+    counted = profiling.counters()
+    profiling.reset()
+    assert counted == {"conv.channel_pad": 1, "epilogue.fused": 1}
+    conv, bn = layer.net[0], layer.net[1]
+    with torch.inference_mode():
+        x32, w32 = x[..., :6].float().permute(0, 3, 1, 2), conv.weight.to(bf).float()
+        prod = torch.nn.functional.conv2d(x32, w32, None, 2, 3)
+        biased = prod + conv.bias[:, None, None]
+        scale = (bn.weight * torch.rsqrt(bn.running_var + 1e-5))[:, None, None]
+        want = torch.relu((biased - bn.running_mean[:, None, None]) * scale + bn.bias[:, None, None])
+        # f32 sums of 294 products in any order: within 294 x 2^-24 of the sum of their sizes
+        acc = 294 * 2 ** -24 * torch.nn.functional.conv2d(x32.abs(), w32.abs(), None, 2, 3)
+        tol = 2 * 2 ** -8 * (scale.abs() * (prod.abs() + biased.abs()) + want.abs()) + scale.abs() * acc
+        assert got.shape == want.shape == (504, 64, 80, 80)
+        assert ((got - want).abs() <= tol).all()
+        assert (got > 0).float().mean() > 0.2
+
+
+def test_first_conv_runs_no_generic_engine(card):
+    """A profiled forward of a trunk's first stage (RefineNet's encodeA at
+    base width 64) on padded input, as the trunk runs it
+    (`networks._encode_pairs`), launches no kernel of cuDNN's generic
+    engine (convolve_common_engine), which the same stage launches on the
+    6 unpadded channels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundationpose_torch.models import networks as nets
+
+    net = nets.init_refine_net(nets.RefineNetCfg(), torch.Generator().manual_seed(0)).to(card)
+    _layer, A, B = _first_conv_inputs(card, 16)
+    bf = torch.bfloat16
+    unpadded = torch.cat([A, B]).to(bf).permute(0, 3, 1, 2)
+    forwards = {"padded": lambda: nets._encode_pairs(net.encodeA, A, B, bf),
+                "c6": lambda: nets._run(net.encodeA, unpadded, bf)}
+    kernels = {}
+    with torch.inference_mode():
+        for name, fn in forwards.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels[name] = {e.key for e in prof.key_averages()}
+    assert any("convolve_common_engine" in k for k in kernels["c6"])
+    assert not any("convolve_common_engine" in k for k in kernels["padded"])
+    assert any("fprop" in k for k in kernels["padded"])
+
+
+def test_recorded_register_counts_padded_convs(card):
+    """A register in bf16 with the network scorer, recorded: its 5 refiner
+    forwards and 1 scorer forward each count one padded first conv, and
+    every epilogue takes the fused kernel, as many as before the pad
+    (25 a RefineNet forward, 20 a ScoreNet forward)."""
+    import dataclasses
+
+    from chip_smoke import K_SMALL, REGISTER_EPILOGUES, _estimator, _small_scene
+    from foundationpose_torch.utils import profiling
+
+    box, cfg, frame = _small_scene()
+    cfg = dataclasses.replace(
+        cfg, refiner=dataclasses.replace(cfg.refiner, compute_dtype="bfloat16"),
+        scorer=dataclasses.replace(cfg.scorer, mode="network", compute_dtype="bfloat16"))
+    est = _estimator(box, cfg, card, head_scale=0.05)
+    profiling.reset()
+    profiling.enable()
+    try:
+        est.register(K_SMALL, *frame, iteration=5)  # a key's first call runs its body eagerly
+        torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    counted = profiling.counters()
+    profiling.reset()
+    assert counted.get("conv.channel_pad") == 6
+    assert counted.get("epilogue.fused") == REGISTER_EPILOGUES
+    assert "epilogue.plain" not in counted
+
+
 def test_launch_counters_count_launches(card):
     r0, a0 = raster_cuda.KERNEL.launches, attention_cuda.KERNEL.launches
     attention_cuda.attention_core_cuda(torch.zeros(1, 4, 24, device=card), 2)
