@@ -22,8 +22,11 @@ Two properties of the JAX package are kept:
   sqrt(nu) / sqrt(1 - b2^t) in place of sqrt(nu / (1 - b2^t))).
 
 While `utils/profiling.py` records, an unsharded step is a request of
-kind "train" with the device stages `train.forward` (the loss),
-`train.backward` and `train.adam` (the optimizer step), timed by events.
+kind "train" whose device stages, timed by events, are the loss's
+forward (a refiner's `train.forward`; a scorer's `score_train.trunk`,
+the pair trunk, then `score_train.attention`, the pair self-attention,
+pool, cross-hypothesis attention, logit and loss), then `train.backward`
+and `train.adam` (the optimizer step).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from .. import torch_config  # noqa: F401
 from ..parallel.sharding import replicate_tree
 from ..torch_config import default_device
 from ..utils import profiling
+from .networks import _tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +83,7 @@ def make_optimizer(cfg: TrainCfg, module: nn.Module, device="cuda") -> torch.opt
 def refine_loss_fn(module: nn.Module, batch: dict, loss_type: str, dtype) -> torch.Tensor:
     """batch: {'A', 'B': (N, res, res, c), 'trans_target': (N, 3),
     'rot_target': (N, rot_dim)}, targets in the network's output space."""
+    profiling.mark("train.forward")
     out = module(batch["A"], batch["B"], dtype=dtype)
     dt = out["trans"] - batch["trans_target"]
     dr = out["rot"] - batch["rot_target"]
@@ -90,8 +95,13 @@ def refine_loss_fn(module: nn.Module, batch: dict, loss_type: str, dtype) -> tor
 def score_loss_fn(module: nn.Module, batch: dict, dtype) -> torch.Tensor:
     """Softmax cross-entropy of one hypothesis group's logits against the
     softmax of the ADD-derived soft targets batch['target'] (L,), as
-    optax.softmax_cross_entropy(logits[None], softmax(target)[None])."""
-    logits = module(batch["A"], batch["B"], dtype=dtype)
+    optax.softmax_cross_entropy(logits[None], softmax(target)[None]).
+    The net's parts run in `forward`'s order, so that the trunk and the
+    attention are device stages of their own."""
+    profiling.mark("score_train.trunk")
+    tokens = _tokens(module.encoderA, module.encoderAB, batch["A"], batch["B"], module.cfg.embed_dim, dtype)
+    profiling.mark("score_train.attention")
+    logits = module.group_logits(module.att(tokens, dtype).mean(dim=1), dtype)
     labels = torch.softmax(batch["target"], dim=-1)
     return -(labels * torch.log_softmax(logits, dim=-1)).sum()
 
@@ -99,8 +109,7 @@ def score_loss_fn(module: nn.Module, batch: dict, dtype) -> torch.Tensor:
 def _step(optimizer, loss_of):
     optimizer.zero_grad(set_to_none=True)
     with profiling.request("train"), profiling.stages(optimizer.param_groups[0]["params"][0].device):
-        profiling.mark("train.forward")
-        loss = loss_of()
+        loss = loss_of()  # marks its own forward stages
         profiling.mark("train.backward")
         loss.backward()
         profiling.mark("train.adam")
